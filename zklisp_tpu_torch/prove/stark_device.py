@@ -1,0 +1,566 @@
+"""Segment prover on PyTorch tensors: the stark.prove_trace protocol with
+every heavy phase on the device (counterpart of the JAX package's
+prove/stark_device.py; byte-identical proofs).
+
+  lde                trace polys + LDE (batched iNTT + coset NTT, in
+                     column chunks)
+  trace_commit       row-chunked Poseidon leaves + tree (CUDA kernel)
+  composition        Poseidon/ROM scan blocks + constraint bytecode VM,
+                     on the stride-2 sub-domain when ce_blowup < blowup
+  quotient           boundary groups + zerofier, interpolate, split into
+                     Q columns, re-LDE
+  constraint_commit
+  ood                chunked fused dots against z-power tables
+  deep               product-tree inverses + row-chunked limb dot
+  fri                per-layer commit -> host coin reseed/draw -> fold
+  grind              proof-of-work scan on the device
+  openings           row/path/value gathers on the device
+
+Fiat-Shamir stays on the host (scalar, microseconds): the coin is
+reseeded with the trace root, the constraint root,
+hash_elements(ood_evals) and each FRI root.  Every root is read back with
+a blocking copy before it is absorbed, so the transcript order cannot
+run ahead of the device.
+
+Memory: the (w, N, 8) int32 trace LDE is the only full-size resident.
+The plain limb ops widen to int64 and form 16-column products, so the
+NTT runs in column chunks and leaf hashing / DEEP in row chunks.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List
+
+import numpy as _np
+import torch
+
+from ..air.zk_air import ZkLispAir, _p_last_lde
+from ..crypto import poseidon as pos
+from ..device import resolve
+from ..field import f128, limb, ntt
+from ..field import limb_host as _lh
+from ..field import ntt_host as _nh
+from ..trace.layout import STEPS_PER_LEVEL_P2
+from ..utils.tracing import phase
+from . import cvm, kernels, multiproof
+from .coin import RandomCoin
+from .composition_device import collect_generic, eval_scan_blocks
+from .params import ProofOptions
+from .stark import (FriLayerOpenings, ProofContext, QueryOpenings,
+                    StarkProof, group_assertions, lde_points_host,
+                    transition_zerofier_inv_lde)
+
+P = f128.P
+OFFSET = ntt.DEFAULT_COSET_OFFSET
+LDE_COL_CHUNK = 128          # columns per NTT batch
+DEEP_ROW_CHUNK = 1 << 14     # rows per DEEP dot
+GROUP_CHUNK = 32             # boundary groups per batched term
+
+_STAGE_CACHE: dict = {}
+
+
+def _to_host_ints(t) -> List[int]:
+    return [int(v) for v in limb.to_ints(t)]
+
+
+# ---------------------------------------------------------------------------
+# LDE
+# ---------------------------------------------------------------------------
+
+def lde_columns(cols, blowup: int, col_chunk: int = LDE_COL_CHUNK):
+    """(C, n, 8) trace columns -> (polys (C, n, 8), lde (C, N, 8)),
+    `col_chunk` columns at a time (bounds the int64 product transients);
+    results are written in place into preallocated outputs."""
+    C, n = cols.shape[0], cols.shape[1]
+    polys = torch.empty_like(cols)
+    lde = torch.empty((C, n * blowup, limb.NLIMB), dtype=cols.dtype,
+                      device=cols.device)
+    for s in range(0, C, col_chunk):
+        p_ = ntt.intt(cols[s:s + col_chunk])
+        polys[s:s + col_chunk] = p_
+        lde[s:s + col_chunk] = ntt.coset_evaluate(p_, blowup)
+    return polys, lde
+
+
+# ---------------------------------------------------------------------------
+# commitments
+# ---------------------------------------------------------------------------
+
+class _DevCommitment:
+    """Merkle commitment whose levels stay on the device.
+
+    Only the root crosses to the host at commit time (needed for FS
+    reseeding; the copy blocks until the tree is built); sibling paths
+    are gathered on the device and transferred in one small copy
+    (`open_paths_multi`)."""
+
+    def __init__(self, levels) -> None:
+        self.levels = levels                     # tensors, (m, 8)
+        self.root_fe = int(limb.to_ints(levels[-1])[0])
+
+    @property
+    def root(self) -> bytes:
+        return f128.fe_to_bytes_fold(self.root_fe)
+
+
+def open_paths_multi(comms: List[_DevCommitment],
+                     positions_per_comm) -> List[List[List[bytes]]]:
+    """Sibling paths (bottom-up) for the given leaf indices of several
+    commitments: all gathers on the device, ONE transfer."""
+    parts = []
+    for c, ps in zip(comms, positions_per_comm):
+        cur = torch.tensor(list(ps), dtype=torch.int64,
+                           device=c.levels[0].device)
+        for level in c.levels[:-1]:
+            parts.append(level[cur ^ 1])
+            cur = cur >> 1
+    if not parts:
+        return [[] for _ in comms]
+    fes = limb.to_ints(torch.cat(parts))
+    out: List[List[List[bytes]]] = []
+    off = 0
+    for c, ps in zip(comms, positions_per_comm):
+        depth = len(c.levels) - 1
+        nq = len(ps)
+        out.append([[f128.fe_to_bytes_fold(int(fes[off + d * nq + j]))
+                     for d in range(depth)] for j in range(nq)])
+        off += depth * nq
+    return out
+
+
+def gather_rows(cols_arr, idx):
+    """(C, N, 8) column-major, idx (nq,) -> (nq, C, 8) opened rows."""
+    return cols_arr[:, idx].transpose(0, 1)
+
+
+def fri_vals(layers, idxs):
+    """[layer_d[idxs_d]] concatenated: (sum(len(idxs_d)), 8)."""
+    return torch.cat([layer[ix] for layer, ix in zip(layers, idxs)])
+
+
+# ---------------------------------------------------------------------------
+# composition + quotient
+# ---------------------------------------------------------------------------
+
+def _record_cvm(air: ZkLispAir, n_periodic: int):
+    """Record the generic constraints to cvm bytecode + scan specs
+    (host-side, milliseconds; cached per configuration)."""
+    key = ("cvm", air.trace_width, air.trace_len, n_periodic,
+           tuple(air.pub.to_elements()))
+    if key in _STAGE_CACHE:
+        return _STAGE_CACHE[key]
+    cur, nxt, per = cvm.sym_leaves(air.trace_width, n_periodic)
+    generic, specs = collect_generic(air, cur, nxt, per)
+    prog = cvm.compile_constraints(generic)
+    out = (prog, tuple(specs))
+    _STAGE_CACHE[key] = out
+    return out
+
+
+def _host_tables(air: ZkLispAir, groups, blowup: int, device):
+    """Config-constant tables, built on the host and uploaded once per
+    (configuration, device): one-period periodic selectors, p_last,
+    zerofier inverse, and divisor inverses (cyclic groups as one period;
+    singles full-length).
+
+    Keyed on layout structure + group STRUCTURE only: the tables depend
+    on offsets/steps but never on assertion values or boundary public
+    inputs, so all segments of a run share one entry."""
+    key = ("tables", air.trace_width, air.trace_len, blowup,
+           dataclasses.astuple(air.features), air.rom_enabled,
+           tuple((g.column, g.offsets, g.step) for g in groups),
+           str(device))
+    if key in _STAGE_CACHE:
+        return _STAGE_CACHE[key]
+    n = air.trace_len
+    N = n * blowup
+    cycle = STEPS_PER_LEVEL_P2
+    dperiod = cycle * blowup
+
+    per_p = _np.asarray(_lh.from_ints(air.periodic_lde_period(blowup)))
+    p_last = _p_last_lde(n, blowup, _np).a
+    zinv = transition_zerofier_inv_lde(n, blowup, _np).a
+
+    cyc_pos = [i for i, g in enumerate(groups) if not g.is_single]
+    sgl_pos = [i for i, g in enumerate(groups) if g.is_single]
+    cyc = [groups[i] for i in cyc_pos]
+    sgl = [groups[i] for i in sgl_pos]
+    g = f128.get_root_of_unity(n)
+    wN = f128.get_root_of_unity(N)
+    k = n // cycle
+
+    cyc_divp = _np.zeros((0, dperiod, limb.NLIMB), dtype=_np.uint32)
+    if cyc:
+        xk_vals = []
+        cur = pow(OFFSET, k, P)
+        wk = pow(wN, k, P)
+        for _ in range(dperiod):
+            xk_vals.append(cur)
+            cur = f128.mul(cur, wk)
+        flat = []
+        for grp in cyc:
+            roots = [pow(g, o * k, P) for o in grp.offsets]
+            for xv in xk_vals:
+                prod = 1
+                for r in roots:
+                    prod = prod * ((xv - r) % P) % P
+                flat.append(prod)
+        inv_flat = f128.batch_inv(flat)
+        cyc_divp = _np.asarray(_lh.from_ints(
+            [inv_flat[i * dperiod:(i + 1) * dperiod]
+             for i in range(len(cyc))]), dtype=_np.uint32)
+
+    sgl_div = _np.zeros((0, N, limb.NLIMB), dtype=_np.uint32)
+    if sgl:
+        # dedup by step: invert each unique (x - g^s) vector once and
+        # expand by index
+        xs = lde_points_host(n, blowup)
+        steps = sorted({grp.step for grp in sgl})
+        flat = []
+        for s in steps:
+            gs = pow(g, s, P)
+            flat.extend((x - gs) % P for x in xs)
+        inv_flat = f128.batch_inv(flat)
+        uniq = _np.asarray(_lh.from_ints(
+            [inv_flat[i * N:(i + 1) * N] for i in range(len(steps))]),
+            dtype=_np.uint32)
+        step_ix = {s: i for i, s in enumerate(steps)}
+        sgl_div = uniq[[step_ix[grp.step] for grp in sgl]]
+
+    up = lambda a: limb.from_numpy(a, device)
+    out = (up(per_p), up(p_last), up(zinv), cyc_pos, up(cyc_divp),
+           sgl_pos, up(sgl_div), dperiod)
+    _STAGE_CACHE[key] = out
+    return out
+
+
+def quotient_comp(comb, lde, cyc_idx, cyc_vals, cyc_divp, cyc_betas,
+                  sgl_idx, sgl_vals, sgl_div, sgl_betas, zinv):
+    """Boundary terms + zerofier apply: comb -> comp (N_c, 8).
+
+    Boundary groups are evaluated GROUP_CHUNK at a time and summed with
+    one reduction per chunk; field addition is exact mod p, so the sum
+    equals the group-by-group accumulation bit for bit."""
+    N = comb.shape[0]
+    comp = limb.mul(comb, zinv)
+    if len(cyc_idx):
+        dperiod = cyc_divp.shape[1]
+        # fold beta into the (tiny) periodic divisor table first
+        divp_b = limb.mul(cyc_divp, cyc_betas[:, None])
+        for s in range(0, len(cyc_idx), GROUP_CHUNK):
+            e = s + GROUP_CHUNK
+            numer = limb.sub(lde[cyc_idx[s:e]], cyc_vals[s:e, None])
+            resh = numer.reshape(-1, N // dperiod, dperiod, limb.NLIMB)
+            term = limb.mul(resh, divp_b[s:e, None])
+            comp = limb.add(comp, limb.sum_mod(
+                term.reshape(-1, N, limb.NLIMB), 0))
+    if len(sgl_idx):
+        for s in range(0, len(sgl_idx), GROUP_CHUNK):
+            e = s + GROUP_CHUNK
+            numer = limb.sub(lde[sgl_idx[s:e]], sgl_vals[s:e, None])
+            term = limb.mul(limb.mul(numer, sgl_div[s:e]),
+                            sgl_betas[s:e, None])
+            comp = limb.add(comp, limb.sum_mod(term, 0))
+    return comp
+
+
+def quotient_finish(comp, n: int, blowup: int, Q: int):
+    """comp (N_c, 8) -> (q_polys (Q, n, 8), q_lde (Q, N, 8))."""
+    coeffs = ntt.coset_interpolate(comp)
+    q_polys = coeffs[:Q * n].reshape(Q, n, limb.NLIMB)
+    return q_polys, ntt.coset_evaluate(q_polys, blowup)
+
+
+# ---------------------------------------------------------------------------
+# OOD, DEEP, FRI
+# ---------------------------------------------------------------------------
+
+def ood_evals(polys, zpow):
+    """polys (C, n, 8), zpow (n, 8) -> [P_c(z)] as (C, 8)."""
+    return limb.sum_mod(limb.mul(polys, zpow[None]), 1)
+
+
+def _lde_xs(n: int, blowup: int, device):
+    """The LDE domain points on the device (cached per shape)."""
+    key = ("xs", n, blowup, str(device))
+    if key not in _STAGE_CACHE:
+        _STAGE_CACHE[key] = limb.from_ints(lde_points_host(n, blowup),
+                                           device)
+    return _STAGE_CACHE[key]
+
+
+def deep_inv(xs, z, zg):
+    """(1/(x-z), 1/(x-zg)) over the domain via a product-tree batch
+    inverse."""
+    N = xs.shape[0]
+    d = torch.cat([limb.sub(xs, z[None]), limb.sub(xs, zg[None])])
+    iv = limb.batch_inv_tree(d)
+    return iv[:N], iv[N:]
+
+
+def deep_chunk(lde_blk, q_blk, coeffs, gz, gzg, inv_xz_blk, inv_xzg_blk):
+    """DEEP composition of one row block: lde_blk (w, chunk, 8), q_blk
+    (Q, chunk, 8), coeffs (w+Q, 8)."""
+    stacked = torch.cat([lde_blk, q_blk]).transpose(0, 1)  # (chunk,w+Q,8)
+    gt = limb.dot(stacked, coeffs[None])
+    t1 = limb.mul(limb.sub(gt, gz[None]), inv_xz_blk)
+    t2 = limb.mul(limb.sub(gt, gzg[None]), inv_xzg_blk)
+    return limb.add(t1, t2)
+
+
+def fri_fold(layer, alpha, x0, inv_2x0):
+    half = layer.shape[0] // 2
+    a_f = alpha[None]
+    num1 = limb.mul(layer[:half], limb.add(a_f, x0))
+    num2 = limb.mul(layer[half:], limb.sub(a_f, x0))
+    return limb.mul(limb.sub(num1, num2), inv_2x0)
+
+
+def _x0_tables(size: int, device):
+    """(x0s, inv(2*x0)) for a FRI layer of `size`, built on the host and
+    uploaded once per (size, device)."""
+    key = ("x0", size, str(device))
+    if key in _STAGE_CACHE:
+        return _STAGE_CACHE[key]
+    half = size // 2
+    wd = f128.get_root_of_unity(size)
+    inv2 = f128.inv(2)
+    x0s, invs = [], []
+    cx = OFFSET
+    inv_w = f128.inv(wd)
+    inv_cx = f128.mul(inv2, f128.inv(OFFSET))
+    for _ in range(half):
+        x0s.append(cx)
+        invs.append(inv_cx)
+        cx = f128.mul(cx, wd)
+        inv_cx = f128.mul(inv_cx, inv_w)
+    out = (limb.from_ints(x0s, device), limb.from_ints(invs, device))
+    _STAGE_CACHE[key] = out
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the prover
+# ---------------------------------------------------------------------------
+
+def prove_trace(trace, air: ZkLispAir, air_pi, options: ProofOptions,
+                limbs16=None, device=None) -> StarkProof:
+    """Prove one trace segment on `device` (default: the CUDA card;
+    `device="cpu"` only when the caller asks).  `limbs16` optionally
+    supplies the segment's (w, n, 8) limb array (numpy or tensor)."""
+    dev = resolve(device)
+    n = trace.length
+    w = trace.width
+    blowup = options.blowup
+    N = n * blowup
+    context = ProofContext(w, n, options)
+    Q = air.ce_blowup()
+
+    def fe(v: int):
+        return limb.from_ints([v], dev)[0]
+
+    # stage 1: trace polys + LDE
+    with phase("lde", dev, rows=n, width=w):
+        src = limbs16 if limbs16 is not None else trace.to_limbs16()
+        cols = (src.to(dev) if isinstance(src, torch.Tensor)
+                else limb.from_numpy(src, dev))
+        trace_polys, trace_lde = lde_columns(cols, blowup)
+
+    # stage 2: trace commitment
+    with phase("trace_commit", dev):
+        ps_main = options.partition_size(w)
+        trace_comm = _DevCommitment(kernels.commit_cols(trace_lde, ps_main))
+
+    with phase("fs_coeff_draws"):
+        coin = RandomCoin(context.to_elements() + air_pi.to_elements())
+        coin.reseed(trace_comm.root)
+        groups = group_assertions(air.get_assertions(), n,
+                                  options.per_assertion)
+        alphas = coin.draw_many(air.num_transition_constraints())
+        betas = coin.draw_many(len(groups))
+
+    # Composition evaluates on the blowup_c = Q sub-domain (every
+    # stride_c-th point of the full LDE): the quotient has degree < Q*n,
+    # so Q*n points determine it exactly.
+    blowup_c = Q if (0 < Q < blowup and blowup % Q == 0) else blowup
+    stride_c = blowup // blowup_c
+    trace_lde_c = (trace_lde if stride_c == 1
+                   else trace_lde[:, ::stride_c].contiguous())
+    n_c = n * blowup_c
+    with phase("host_tables", dev):
+        (per_p, p_last, zinv, cyc_pos, cyc_divp, sgl_pos, sgl_div,
+         dperiod) = _host_tables(air, groups, blowup_c, dev)
+    cyc = [groups[i] for i in cyc_pos]
+    sgl = [groups[i] for i in sgl_pos]
+    alphas_dev = limb.from_ints(alphas, dev)
+
+    # stage 3: composition = scan blocks + bytecode VM
+    with phase("record_cvm"):
+        prog_cvm, specs = _record_cvm(air, per_p.shape[0] + 1)
+    with phase("composition", dev):
+        comb = None
+        if specs:
+            comb = eval_scan_blocks(air, trace_lde_c, blowup_c,
+                                    per_p[1:1 + 27], alphas_dev, specs)
+        if prog_cvm.n_instr:
+            acc_gen = cvm.execute(prog_cvm, trace_lde_c, per_p, p_last,
+                                  alphas_dev, blowup_c)
+            comb = acc_gen if comb is None else limb.add(comb, acc_gen)
+
+    # boundary + quotient
+    def vals(ints):
+        return (limb.from_ints(ints, dev) if ints
+                else limb.zeros((0,), dev))
+
+    def index(ints):
+        return torch.tensor(ints, dtype=torch.int64, device=dev)
+
+    with phase("quotient", dev):
+        comp = quotient_comp(
+            comb, trace_lde_c,
+            index([g.column for g in cyc]), vals([g.value for g in cyc]),
+            cyc_divp, vals([betas[i] for i in cyc_pos]),
+            index([g.column for g in sgl]), vals([g.value for g in sgl]),
+            sgl_div, vals([betas[i] for i in sgl_pos]), zinv)
+        assert comp.shape[0] == n_c
+        q_polys, q_lde = quotient_finish(comp, n, blowup, Q)
+        del comp, comb, trace_lde_c
+
+    with phase("constraint_commit", dev):
+        ps_con = options.partition_size(Q)
+        constraint_comm = _DevCommitment(kernels.commit_cols(q_lde, ps_con))
+        coin.reseed(constraint_comm.root)
+
+    # stage 4: OOD
+    with phase("ood", dev):
+        z = coin.draw()
+        g_trace = f128.get_root_of_unity(n)
+        zg = f128.mul(z, g_trace)
+        zp = limb.from_numpy(_lh.powers_np(z, n), dev)
+        zgp = limb.from_numpy(_lh.powers_np(zg, n), dev)
+        ood_t_cur = _to_host_ints(ood_evals(trace_polys, zp))
+        ood_t_next = _to_host_ints(ood_evals(trace_polys, zgp))
+        ood_q_cur = _to_host_ints(ood_evals(q_polys, zp))
+        ood_q_next = _to_host_ints(ood_evals(q_polys, zgp))
+        ood_all = ood_t_cur + ood_q_cur + ood_t_next + ood_q_next
+        coin.reseed(pos.hash_elements(ood_all))
+
+    # stage 5: DEEP
+    with phase("deep", dev):
+        gammas = coin.draw_many(w)
+        deltas = coin.draw_many(Q)
+        gz = sum(g_ * t for g_, t in zip(gammas, ood_t_cur)) % P
+        gz = (gz + sum(d * q for d, q in zip(deltas, ood_q_cur))) % P
+        gzg = sum(g_ * t for g_, t in zip(gammas, ood_t_next)) % P
+        gzg = (gzg + sum(d * q for d, q in zip(deltas, ood_q_next))) % P
+
+        inv_xz, inv_xzg = deep_inv(_lde_xs(n, blowup, dev), fe(z), fe(zg))
+        coeffs = limb.from_ints(gammas + deltas, dev)
+        gz_dev, gzg_dev = fe(gz), fe(gzg)
+        chunk = min(DEEP_ROW_CHUNK, N)
+        deep = torch.cat([
+            deep_chunk(trace_lde[:, s:s + chunk], q_lde[:, s:s + chunk],
+                       coeffs, gz_dev, gzg_dev, inv_xz[s:s + chunk],
+                       inv_xzg[s:s + chunk])
+            for s in range(0, N, chunk)])
+        del inv_xz, inv_xzg
+
+    # stage 6: FRI, one layer at a time with the host coin
+    with phase("fri", dev):
+        num_layers = options.num_fri_layers(N)
+        fri_layers_vals = []
+        fri_comms: List[_DevCommitment] = []
+        layer = deep
+        size = N
+        for d in range(num_layers):
+            half = size // 2
+            pair_rows = torch.stack([layer[:half], layer[half:]], dim=1)
+            comm = _DevCommitment(kernels.commit_rows(pair_rows, 2))
+            fri_comms.append(comm)
+            fri_layers_vals.append(layer)     # full layers stay on device
+            coin.reseed(comm.root)
+            alpha = coin.draw()
+            x0s, inv2x0 = _x0_tables(size, dev)
+            layer = fri_fold(layer, fe(alpha), x0s, inv2x0)
+            size = half
+
+        rem_host = limb.to_numpy_u32(layer)
+        rem_ints = [int(v) for v in _lh.to_ints(
+            _nh.coset_interpolate(rem_host, 1, _np))]
+        max_deg = options.fri_remainder_max_degree
+        assert all(v == 0 for v in rem_ints[max_deg + 1:]), \
+            "FRI remainder degree too high"
+        fri_remainder = list(reversed(rem_ints[:max_deg + 1]))
+
+    # grinding + positions (host-driven, device scan)
+    with phase("grind", dev, bits=options.grinding_factor):
+        pow_nonce = coin.grind(options.grinding_factor, device=dev)
+    positions = sorted(set(coin.draw_integers(
+        options.num_queries, N, pow_nonce)))
+
+    # openings: gather opened rows on the device (no full row-major copy)
+    with phase("openings", dev, nq=len(positions)):
+        idx_dev = index(positions)
+        t_rows = limb.to_numpy_u32(gather_rows(trace_lde, idx_dev))
+        q_rows = limb.to_numpy_u32(gather_rows(q_lde, idx_dev))
+        tc_paths = open_paths_multi(
+            [trace_comm, constraint_comm],
+            [list(positions), list(positions)])
+        trace_open = QueryOpenings(
+            [[int(v) for v in _lh.to_ints(t_rows[j])]
+             for j in range(len(positions))], tc_paths[0],
+            multiproof.compress(positions, tc_paths[0]))
+        constraint_open = QueryOpenings(
+            [[int(v) for v in _lh.to_ints(q_rows[j])]
+             for j in range(len(positions))], tc_paths[1],
+            multiproof.compress(positions, tc_paths[1]))
+
+        # fold the query positions through all layers on the host first,
+        # so every layer's value gather goes in ONE transfer
+        foldeds = []
+        pos_d = positions
+        size_d = N
+        for d in range(num_layers):
+            half = size_d // 2
+            folded = []
+            for p_ in pos_d:
+                m = p_ % half
+                if m not in folded:
+                    folded.append(m)
+            foldeds.append((folded, half))
+            pos_d = folded
+            size_d = half
+        fri_open: List[FriLayerOpenings] = []
+        if num_layers:
+            idxs = [index(folded + [half + m for m in folded])
+                    for folded, half in foldeds]
+            vals_flat = limb.to_ints(fri_vals(fri_layers_vals, idxs))
+            all_paths = open_paths_multi(fri_comms,
+                                         [f for f, _ in foldeds])
+            base = 0
+            for d, (folded, half) in enumerate(foldeds):
+                nf = len(folded)
+                pairs = [(int(vals_flat[base + i]),
+                          int(vals_flat[base + nf + i]))
+                         for i in range(nf)]
+                base += 2 * nf
+                fri_open.append(FriLayerOpenings(
+                    pairs, all_paths[d],
+                    multiproof.compress(folded, all_paths[d])))
+
+    return StarkProof(
+        context=context,
+        trace_root=trace_comm.root,
+        constraint_root=constraint_comm.root,
+        ood_trace_current=ood_t_cur,
+        ood_trace_next=ood_t_next,
+        ood_quotient_current=ood_q_cur,
+        ood_quotient_next=ood_q_next,
+        fri_roots=[c.root for c in fri_comms],
+        fri_remainder=fri_remainder,
+        pow_nonce=pow_nonce,
+        trace_openings=trace_open,
+        constraint_openings=constraint_open,
+        fri_openings=fri_open,
+    )
