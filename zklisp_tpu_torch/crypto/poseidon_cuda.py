@@ -136,6 +136,8 @@ def permute12(states, suite_id: bytes, rounds: int | None = None):
     mds, rc, _ = suite_tensors(suite_id, rounds, x.device)
     out = torch.empty_like(x)
     batch = x.numel() // (12 * limb.NLIMB)
+    if batch == 0:
+        return out                       # nothing to launch, nothing counted
     if permute12.batch_log is not None:
         permute12.batch_log.append(batch)
     with torch.cuda.device(x.device):
