@@ -3,36 +3,55 @@
 
     python3 chip_smoke.py            # all phases, needs one CUDA card
 
-Builds the port's CUDA kernel from the sources in this checkout, holds it
-against its plain PyTorch version on the card, and drives the port's main
-path — compile the scaled rollup-bench program, build the 2^16-row trace,
-prove its 4096-row segments (blowup 16, 64 queries, grind 16, 27 hasher
-rounds) with `prove_program`, verify every StepProof with `verify_step`.
+Builds the port's CUDA kernels (poseidon12, digit_dot) from the sources in
+this checkout, holds each against its plain PyTorch version on the card,
+and drives the port's main path — compile the scaled rollup-bench program,
+build the 2^16-row trace, prove its 4096-row segments (blowup 16, 64
+queries, grind 16, 27 hasher rounds) with `prove_program`, verify every
+StepProof with `verify_step` — in two configurations:
+
+  default  four-step matrix NTT, matrix DEEP, leveled constraint executor,
+           fused FRI chain (what `prove_program` does with no switch set);
+           all 16 segments
+  earlier  ZKL_NO_MXU_NTT, ZKL_NO_MXU_DEEP, ZKL_CVM_LEVEL=0 and
+           ZKL_NO_FUSED_FRI set: radix-2 NTT, limb-dot DEEP, stack
+           executor, per-layer FRI loop; the first 2 segments, whose
+           StepProof bytes must equal the default configuration's
 
 Each phase prints one JSON object on a line of its own:
   device   card name and power limit (nvidia-smi), torch and CUDA versions
-  build    seconds to build poseidon12.cu and the host native library
-  kernels  poseidon12 == permute12_plain on the card (tolerance 0) at
-           fixed batches, edge states included
+  build    seconds to build the two kernels (in parallel) and the host
+           native library, and what ptxas reports for each kernel
+  kernels  poseidon12 == permute12_plain (fixed batches, edge states) and
+           digit_dot == digit_dot_plain (the probe's shape in u8 and s8,
+           the main path's shapes, ragged shapes, all-255 digits), on the
+           card, tolerance 0
   commit   Merkle commit of a (219, 8192, 8) array on the card: through
            the kernel vs through the plain permutation
-  prove    the segments proved, per-phase seconds, rows/s, peak memory
-  shapes   poseidon12 == permute12_plain at every batch shape the prove
-           phase gave the kernel, and its time at the two largest
-then the `{"kernels": [...]}` summary and, last, the `{"ok": true, ...}`
-line.  Any failed phase ends the run with a non-zero exit code and no
-result line.  Without a CUDA card the script exits non-zero at once.
+  prove    per configuration (one line each, headed by the card's name
+           and power limit): the segments proved, per-phase seconds,
+           rows/s, peak memory, kernel launches; then the byte comparison
+  shapes   each kernel == its plain version at every shape the default
+           run gave it, and both versions' times (poseidon12: at the two
+           largest batches; digit_dot: at every shape, with the time of
+           `torch._int_mm` beside them as the library's yardstick)
+then the `{"kernels": [...]}` summary, the whole run's seconds and, last,
+the `{"ok": true, ...}` line.  Any failed phase ends the run with a
+non-zero exit code and no result line.  Without a CUDA card the script
+exits non-zero at once.
 
 Options (for development; the default run takes none):
   --phases device,build,kernels,commit,prove,shapes   subset of phases
                     (`shapes` needs `prove`)
-  --segments K      prove only the first K segments (default: as many of
-                    the 16 as the time budget allows, at least 2)
+  --segments K      prove only the first K segments in the default
+                    configuration (default: as many of the 16 as the time
+                    budget allows, at least 2)
 """
 
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import json
 import os
 import subprocess
@@ -57,8 +76,10 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from zklisp_tpu_torch import native                          # noqa: E402
 from zklisp_tpu_torch.crypto import poseidon as pos          # noqa: E402
 from zklisp_tpu_torch.crypto import poseidon_cuda            # noqa: E402
+from zklisp_tpu_torch.field import digit_dot as dd           # noqa: E402
 from zklisp_tpu_torch.field import f128, limb                # noqa: E402
 from zklisp_tpu_torch.prove import kernels                   # noqa: E402
+from zklisp_tpu_torch.prove import stark_device              # noqa: E402
 
 DEV = torch.device("cuda")
 P = f128.P
@@ -85,6 +106,13 @@ INT32_MAD_PER_S = 132 * 64 * 1.98e9
 # above what the function strictly needs.
 MAD32_PER_STATE_ROUND = (168 * 4 + 36 * 4) * 4
 BYTES_PER_STATE = 2 * 12 * 8 * 4
+# dense INT8 tensor-core rate (NVIDIA H100 SXM data sheet, no sparsity)
+INT8_OPS_PER_S = 1979e12
+
+# the switches of the earlier configuration (the JAX package's own names)
+EARLIER_ENV = {"ZKL_NO_MXU_NTT": "1", "ZKL_NO_MXU_DEEP": "1",
+               "ZKL_CVM_LEVEL": "0", "ZKL_NO_FUSED_FRI": "1"}
+EARLIER_SEGMENTS = 2
 
 
 def emit(obj) -> None:
@@ -155,18 +183,34 @@ def phase_device():
     return line
 
 
+def ptxas_lines(log: str) -> list:
+    """Per kernel: its entry name (mangled; digit_dot's template values
+    show as ILb<signed>ELi<warps M>ELi<warps N>ELi<n-tiles>E) with ptxas'
+    register / shared-memory / spill lines."""
+    keep = [l.strip() for l in log.splitlines()
+            if "Compiling entry function" in l or "registers" in l
+            or "spill" in l]
+    return [l.replace("ptxas info    : ", "") for l in keep]
+
+
 def phase_build():
+    """Both kernels are compiled at once (one nvcc each)."""
     t0 = time.time()
-    poseidon_cuda.load()
-    t_kernel = time.time() - t0
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        for job in [pool.submit(poseidon_cuda.load), pool.submit(dd.load)]:
+            job.result()                       # a failed build raises here
+    t_kernels = time.time() - t0
     t0 = time.time()
     if not native.available():
         fail("host native library (f128_native) did not build")
     t_native = time.time() - t0
-    ptxas = [l for l in poseidon_cuda.build_info["log"].splitlines()
-             if "registers" in l or "spill" in l]
-    emit({"phase": "build", "poseidon12_s": round(t_kernel, 3),
-          "native_s": round(t_native, 3), "ptxas": ptxas[-4:]})
+    emit({"phase": "build", "kernels_s": round(t_kernels, 3),
+          "poseidon12_s": round(poseidon_cuda.build_info["seconds"] or 0, 3),
+          "digit_dot_s": round(dd.build_info["seconds"] or 0, 3),
+          "native_s": round(t_native, 3),
+          "ptxas": {"poseidon12":
+                    ptxas_lines(poseidon_cuda.build_info["log"])[-4:],
+                    "digit_dot": ptxas_lines(dd.build_info["log"])}})
 
 
 def phase_kernels():
@@ -194,6 +238,143 @@ def phase_kernels():
     emit({"phase": "kernels", "kernel": "poseidon12", "tolerance": 0,
           "max_abs_err": max_err, "checked": checked})
     return max_err
+
+
+def rand_digits(rng, shape, signed: bool = False):
+    """8-bit digits over the dtype's full range, on the card."""
+    if signed:
+        arr = rng.integers(-128, 128, size=shape, dtype=np.int8)
+    else:
+        arr = rng.integers(0, 256, size=shape, dtype=np.uint8)
+    return torch.from_numpy(arr).to(DEV)
+
+
+def dd_err(a, wt) -> int:
+    """max |digit_dot - digit_dot_plain| on the card."""
+    got = dd.digit_dot(a, wt)
+    ref = dd.digit_dot_plain(a, wt)
+    torch.cuda.synchronize()
+    return max_abs_diff(got, ref)
+
+
+def lde_chunk() -> int:
+    """Columns per NTT batch of a rollup-bench segment (N = 65,536), as
+    `stark_device.lde_columns` derives it."""
+    return max(1, stark_device.LDE_CHUNK_BYTES
+               // (65536 * stark_device.LDE_BYTES_PER_POINT))
+
+
+def phase_kernels_digit_dot():
+    """digit_dot vs digit_dot_plain on the card, exact equality: the
+    probe's shape and data (u8 and s8), the main path's shapes (one
+    product, and the four products stacked as `field_matmul` launches
+    them), ragged shapes and the accumulation edge."""
+    rng = np.random.default_rng(0)
+    checked = []
+    max_err = 0
+
+    def check(what, a, wt):
+        nonlocal max_err
+        err = dd_err(a, wt)
+        max_err = max(max_err, err)
+        checked.append({"what": what, "M": a.shape[0], "K": a.shape[1],
+                        "N": wt.shape[0], "dtype": str(a.dtype)[6:],
+                        "equal": err == 0})
+        if err != 0:
+            fail(f"digit_dot != plain at {what} {tuple(a.shape)} x "
+                 f"{tuple(wt.shape)}: max abs err {err}")
+
+    # the probe: (192, 96) . (96, 512), digits below 128, seed 0
+    w8 = rng.integers(0, 128, size=(192, 96), dtype=np.uint8)
+    x8 = rng.integers(0, 128, size=(96, 512), dtype=np.uint8)
+    want = torch.from_numpy(w8.astype(np.int64) @ x8.astype(np.int64))
+    for dt in (torch.uint8, torch.int8):
+        a = torch.from_numpy(w8).to(DEV).to(dt)
+        wt = torch.from_numpy(np.ascontiguousarray(x8.T)).to(DEV).to(dt)
+        check("probe", a, wt)
+        if max_abs_diff(dd.digit_dot(a, wt).cpu(), want) != 0:
+            fail("digit_dot != the numpy int64 product at the probe")
+
+    C = lde_chunk()
+    for what, M, K, N in [
+            ("intt4096 stage", C * 64, 512, 1024),
+            ("intt4096 stage, stacked", 2 * C * 64, 512, 2048),
+            ("ntt65536 stage", C * 256, 2048, 4096),
+            ("ntt65536 stage, stacked", 2 * C * 256, 2048, 8192),
+            ("deep", 65536, 1760, 16),
+            ("deep, stacked", 131072, 1760, 32),
+            ("ragged M=1 N=16", 1, 100, 16),
+            ("ragged", 77, 45, 19),
+            ("ragged", 300, 1000, 130),
+            ("ragged N=33", 257, 64, 33)]:
+        check(what, rand_digits(rng, (M, K)), rand_digits(rng, (N, K)))
+    check("s8 full range", rand_digits(rng, (130, 96), True),
+          rand_digits(rng, (70, 96), True))
+    full = torch.full((200, 2048), 255, dtype=torch.uint8, device=DEV)
+    check("all 255, K=2048", full, full[:72])
+    check("all 255, K=4096*8", full.repeat(1, 16)[:40], full.repeat(1, 16))
+    emit({"phase": "kernels", "kernel": "digit_dot", "tolerance": 0,
+          "max_abs_err": max_err, "lde_col_chunk": C, "checked": checked})
+    return max_err
+
+
+def int_mm_ms(M: int, K: int, N: int):
+    """Time of the one PyTorch call that computes the same function on
+    s8 inputs, `torch._int_mm` (a yardstick only: the port never calls
+    it); None where it refuses the shape."""
+    rng = np.random.default_rng(5)
+    a = torch.from_numpy(rng.integers(0, 128, size=(M, K),
+                                      dtype=np.int8)).to(DEV)
+    wt = torch.from_numpy(rng.integers(0, 128, size=(N, K),
+                                       dtype=np.int8)).to(DEV)
+    try:
+        if max_abs_diff(torch._int_mm(a, wt.t()),
+                        dd.digit_dot_plain(a, wt)) != 0:
+            fail("torch._int_mm disagrees with digit_dot_plain")
+        return cuda_ms(lambda: torch._int_mm(a, wt.t()))
+    except RuntimeError as e:
+        sys.stderr.write(f"chip_smoke: torch._int_mm refused "
+                         f"({M}, {K}) x ({K}, {N}): {e}\n")
+        return None
+
+
+def phase_shapes_digit_dot(shape_log):
+    """digit_dot vs digit_dot_plain at every distinct (M, K, N) the main
+    path launched (exact equality), and the times of kernel, plain version
+    and library call at each of them (they are few), costliest first."""
+    rng = np.random.default_rng(20240603)
+    shapes = sorted(set(shape_log), key=lambda s: -s[0] * s[1] * s[2])
+    checked, timed = [], []
+    max_err = 0
+    for M, K, N in shapes:
+        a = rand_digits(rng, (M, K))
+        wt = rand_digits(rng, (N, K))
+        err = dd_err(a, wt)
+        max_err = max(max_err, err)
+        checked.append({"M": M, "K": K, "N": N, "equal": err == 0,
+                        "launches_main_path": shape_log.count((M, K, N))})
+        if err != 0:
+            fail(f"digit_dot != plain at main-path shape {(M, K, N)}")
+        ms = cuda_ms(lambda: dd.digit_dot(a, wt))
+        # the comparison above was the plain version's warm-up
+        plain_ms = cuda_ms(lambda: dd.digit_dot_plain(a, wt), reps=2,
+                           warm=0)
+        ops_ms = 2.0 * M * K * N / INT8_OPS_PER_S * 1e3
+        bytes_ms = (M * K + K * N + 4.0 * M * N) / HBM_BYTES_PER_S * 1e3
+        timed.append({"M": M, "K": K, "N": N, "ms": ms,
+                      "launches_main_path": shape_log.count((M, K, N)),
+                      "plain_ms": plain_ms,
+                      "bound_ms": max(ops_ms, bytes_ms),
+                      "bound_by": ("operations" if ops_ms >= bytes_ms
+                                   else "bytes"),
+                      "bound_ops_ms": ops_ms, "bound_bytes_ms": bytes_ms,
+                      "library_ms": int_mm_ms(M, K, N),
+                      "tera_ops_per_s": 2.0 * M * K * N / ms / 1e9})
+        del a, wt
+        torch.cuda.empty_cache()
+    emit({"phase": "shapes", "kernel": "digit_dot", "tolerance": 0,
+          "max_abs_err": max_err, "checked": checked, "timed": timed})
+    return max_err, timed
 
 
 def phase_shapes(batch_log):
@@ -290,13 +471,12 @@ def phase_commit():
         fail("kernel and plain commitments differ")
 
 
-def phase_prove(n_segments):
+def prove_setup():
+    """Compile the scaled rollup-bench program once for both runs."""
     from zklisp_tpu_torch import workload
     from zklisp_tpu_torch.compiler import compile_entry
     from zklisp_tpu_torch.core.pi import PublicInputsBuilder
-    from zklisp_tpu_torch.prove import prover
     from zklisp_tpu_torch.prove.params import ProverOptions
-    from zklisp_tpu_torch.utils import tracing
 
     t0 = time.time()
     src, batch, n_ops = workload.rollup_source(65536 // 32)
@@ -304,10 +484,25 @@ def phase_prove(n_segments):
     pi = PublicInputsBuilder(program).build()
     opts = ProverOptions(min_security_bits=0, blowup=16, grind=16,
                          queries=64)
-    t_compile = time.time() - t0
+    return {"program": program, "pi": pi, "opts": opts, "batch": batch,
+            "ops": n_ops, "compile_s": time.time() - t0}
+
+
+def phase_prove(setup, config: str, env: dict, n_segments, smi_line: str):
+    """Drive `prove_program` in one configuration (`env` = the switches
+    to set; the four are cleared first) with every kernel's count set to
+    0 just before and read just after; verify every StepProof."""
+    from zklisp_tpu_torch.prove import prover
+    from zklisp_tpu_torch.utils import tracing
+
+    for k in EARLIER_ENV:
+        os.environ.pop(k, None)
+    os.environ.update(env)
 
     seg_seconds = []
     last = [time.time()]
+    first_segment = {}        # per-phase seconds of segment 0, which pays
+                              # for the tables, the allocator and the build
 
     def on_steps(_batch):
         """Stop the serial loop when the next segment would not fit."""
@@ -315,24 +510,38 @@ def phase_prove(n_segments):
         seg_seconds.append(now - last[0])
         last[0] = now
         done = len(seg_seconds)
+        if done == 1:
+            first_segment.update(tracing.summary())
         if n_segments is not None:
             return done >= n_segments
         left = BUDGET_S - (now - T_START)
-        # keep room for the next segment and for verifying all of them
-        return done >= 2 and left < 1.5 * max(seg_seconds) + 4 * done + 60
+        # keep room for the next segment, for verifying all of them and
+        # for the earlier configuration's run
+        return done >= 2 and left < 1.5 * max(seg_seconds) + 4 * done + 120
 
     tracing.reset()
     torch.cuda.reset_peak_memory_stats()
+    wrappers = {"poseidon12": poseidon_cuda.permute12,
+                "digit_dot": dd.digit_dot}
     poseidon_cuda.permute12.batch_log = []        # the main path's shapes
-    poseidon_cuda.permute12.launches = 0          # count the main path only
+    dd.digit_dot.shape_log = []
+    for wr in wrappers.values():
+        wr.launches = 0                           # count this run only
     t0 = last[0] = time.time()
-    steps = prover.prove_program(program, pi, opts, on_steps=on_steps,
-                                 device=DEV)
-    torch.cuda.synchronize()
+    try:
+        steps = prover.prove_program(setup["program"], setup["pi"],
+                                     setup["opts"], on_steps=on_steps,
+                                     device=DEV)
+        torch.cuda.synchronize()
+    finally:
+        for k in env:
+            os.environ.pop(k, None)
     t_prove = time.time() - t0
-    launches = poseidon_cuda.permute12.launches   # read right after the run
+    launches = {k: wr.launches for k, wr in wrappers.items()}
     batch_log = poseidon_cuda.permute12.batch_log
+    shape_log = dd.digit_dot.shape_log
     poseidon_cuda.permute12.batch_log = None
+    dd.digit_dot.shape_log = None
     peak = torch.cuda.max_memory_allocated()
     n_total = steps[0].proof.pi.segments_total if steps else 0
 
@@ -341,32 +550,95 @@ def phase_prove(n_segments):
         try:
             prover.verify_step(step)
         except Exception as e:                    # noqa: BLE001
-            fail(f"verify_step rejected segment {i}: {e!r}")
+            fail(f"verify_step rejected segment {i} ({config}): {e!r}")
     t_verify = time.time() - t0
     if len(steps) < 2:
-        fail("fewer than 2 segments proved")
-    if launches <= 0 or launches != len(batch_log):
-        fail("the main path launched the poseidon12 kernel no time")
+        fail(f"fewer than 2 segments proved ({config})")
+    if (launches["poseidon12"] <= 0
+            or launches["poseidon12"] != len(batch_log)):
+        fail(f"the {config} path launched the poseidon12 kernel no time")
+    if launches["digit_dot"] != len(shape_log):
+        fail("digit_dot's launch count and shape log disagree")
+    if env:
+        if launches["digit_dot"] != 0:
+            fail("the earlier configuration launched digit_dot")
+    elif launches["digit_dot"] <= 0:
+        fail("the default path launched the digit_dot kernel no time")
 
     rows = 4096 * len(steps)
     per_phase = tracing.summary()
     n = len(steps)
-    emit({"phase": "prove", "program": "examples/rollup-bench.zlisp",
-          "batch": batch, "ops": n_ops, "trace_rows": 65536,
+    print(smi_line, flush=True)
+    emit({"phase": "prove", "config": config, "switches": env,
+          "program": "examples/rollup-bench.zlisp",
+          "batch": setup["batch"], "ops": setup["ops"],
+          "trace_rows": 65536,
           "segments_total": n_total, "segments_proved": n,
           "all_segments": n == n_total, "segment_rows": 4096,
           "width": steps[0].proof.inner.context.trace_width,
           "blowup": 16, "queries": 64, "grind": 16, "hasher_rounds": ROUNDS,
-          "verified": True, "compile_trace_s": round(t_compile, 3),
+          "verified": True,
+          "compile_trace_s": round(setup["compile_s"], 3),
           "prove_s": round(t_prove, 3), "verify_s": round(t_verify, 3),
           "rows_per_s": rows / t_prove,
           "segment_s": [round(s, 3) for s in seg_seconds],
-          "per_phase_s_one_segment": {k: round(v / n, 4)
-                                      for k, v in per_phase.items()},
-          "peak_memory_bytes": peak, "poseidon12_launches": launches,
-          "launches_per_segment": launches / n,
+          "per_phase_s_first_segment": {k: round(v, 4) for k, v
+                                        in first_segment.items()},
+          "per_phase_s_later_segments_mean": {
+              k: round((v - first_segment.get(k, 0.0)) / (n - 1), 4)
+              for k, v in per_phase.items()},
+          "peak_memory_bytes": peak, "launches": launches,
+          "launches_per_segment": {k: v / n for k, v in launches.items()},
           "states_per_segment": sum(batch_log) / n})
-    return launches, batch_log
+    return {"steps": [st.to_bytes() for st in steps], "launches": launches,
+            "batch_log": batch_log, "shape_log": shape_log}
+
+
+def phase_prove_both(n_segments, smi_line: str):
+    """The default configuration, then the earlier one on the first
+    segments; their StepProof bytes must be equal."""
+    setup = prove_setup()
+    new = phase_prove(setup, "default", {}, n_segments, smi_line)
+    old = phase_prove(setup, "earlier", dict(EARLIER_ENV),
+                      EARLIER_SEGMENTS, smi_line)
+    both = min(len(new["steps"]), len(old["steps"]))
+    equal = [new["steps"][i] == old["steps"][i] for i in range(both)]
+    emit({"phase": "prove", "compare": "StepProof bytes, default vs "
+          "earlier configuration", "segments": both, "equal": equal,
+          "bytes": [len(b) for b in new["steps"][:both]]})
+    if both < 2 or not all(equal):
+        fail("the two configurations' StepProof bytes differ")
+    return new
+
+
+def kernels_summary(run, errs, timed) -> dict:
+    """The `{"kernels": [...]}` line: per kernel the launches of the
+    default run and the times at its costliest main-path shape."""
+    n = len(run["steps"])
+    top_p, top_d = timed["poseidon12"][0], timed["digit_dot"][0]
+    return {"kernels": [
+        {"name": "poseidon12", "route": "cuda",
+         "source": "zklisp_tpu_torch/csrc/poseidon12.cu",
+         "replaces": "zklisp_tpu/crypto/poseidon_pallas.py:351",
+         "launches": run["launches"]["poseidon12"],
+         "launches_per_segment": run["launches"]["poseidon12"] / n,
+         "max_abs_err": errs["poseidon12"],
+         "ms": top_p["ms"], "plain_ms": top_p["plain_ms"],
+         "bound_ms": top_p["bound_ms"], "bound_by": top_p["bound_by"],
+         "library_ms": None, "batch": top_p["batch"],
+         "rounds": top_p["rounds"],
+         "other_shapes": timed["poseidon12"][1:]},
+        {"name": "digit_dot", "route": "cuda",
+         "source": "zklisp_tpu_torch/csrc/digit_dot.cu",
+         "replaces": "scripts/exp_pallas_int8_dot.py:41",
+         "launches": run["launches"]["digit_dot"],
+         "launches_per_segment": run["launches"]["digit_dot"] / n,
+         "max_abs_err": errs["digit_dot"],
+         "ms": top_d["ms"], "plain_ms": top_d["plain_ms"],
+         "bound_ms": top_d["bound_ms"], "bound_by": top_d["bound_by"],
+         "library_ms": top_d["library_ms"],
+         "shape_MKN": [top_d["M"], top_d["K"], top_d["N"]],
+         "other_shapes": timed["digit_dot"][1:]}]}
 
 
 def main() -> None:
@@ -381,36 +653,30 @@ def main() -> None:
     smi_line = phase_device()
     if "build" in phases:
         phase_build()
-    errs, timed = [], []
+    errs = {"poseidon12": 0, "digit_dot": 0}
+    timed = {}
     if "kernels" in phases:
-        errs.append(phase_kernels())
+        errs["poseidon12"] = phase_kernels()
+        errs["digit_dot"] = phase_kernels_digit_dot()
     if "commit" in phases:
         phase_commit()
     if "prove" in phases:
-        launches, batch_log = phase_prove(args.segments)
+        run = phase_prove_both(args.segments, smi_line)
     if "shapes" in phases:
-        err, timed = phase_shapes(batch_log)
-        errs.append(err)
-
-    if timed:
-        top = timed[0]
-        emit({"kernels": [{
-            "name": "poseidon12", "route": "cuda",
-            "source": "zklisp_tpu_torch/csrc/poseidon12.cu",
-            "replaces": "zklisp_tpu/crypto/poseidon_pallas.py:351",
-            "launches": launches, "max_abs_err": max(errs),
-            "ms": top["ms"], "plain_ms": top["plain_ms"],
-            "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
-            "library_ms": None, "batch": top["batch"],
-            "rounds": top["rounds"], "other_shapes": timed[1:]}]})
+        err, timed["poseidon12"] = phase_shapes(run["batch_log"])
+        errs["poseidon12"] = max(errs["poseidon12"], err)
+        err, timed["digit_dot"] = phase_shapes_digit_dot(run["shape_log"])
+        errs["digit_dot"] = max(errs["digit_dot"], err)
+        emit(kernels_summary(run, errs, timed))
+    emit({"phase": "total", "seconds": round(time.time() - T_START, 1),
+          "phases": phases})
     print(smi_line, flush=True)
     if set(phases) >= set(ALL_PHASES.split(",")):
         emit({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}})
     else:
-        emit({"partial": True, "phases": phases,
-              "seconds": round(time.time() - T_START, 1)})
+        emit({"partial": True, "phases": phases})
 
 
 if __name__ == "__main__":

@@ -3,10 +3,18 @@
 tiny program of tests/test_device_prover.py (1024 x 219, 8 queries,
 blowup 8) against the JAX package's host reference
 `stark.prove_trace(..., np)` — the prover the JAX device prover itself is
-held to.  Proof bytes are compared exactly (tolerance 0).
+held to.  Proof bytes are compared exactly (tolerance 0).  The proof is
+made twice: in the configuration the card runs by default, forced on the
+CPU (four-step matrix NTT, matrix DEEP, fused FRI chain, and
+ZKL_CVM_LEVEL=1 for the leveled constraint executor), and with the four
+kill switches set (radix-2 NTT, limb-dot DEEP, stack executor, per-layer
+FRI loop).  Both must give the host reference's bytes.
 
 Then the port on its own: `prove_program` over two 512-row segments and
 `verify_step` on each StepProof."""
+
+import contextlib
+import os
 
 import numpy as np
 import pytest
@@ -24,7 +32,9 @@ from zklisp_tpu_torch.air import airpi as t_airpi
 from zklisp_tpu_torch.air import zk_air as t_zk_air
 from zklisp_tpu_torch.compiler import compile_str as t_compile_str
 from zklisp_tpu_torch.core import pi as t_pi
+from zklisp_tpu_torch.field import mxu as t_mxu
 from zklisp_tpu_torch.prove import coin as t_coin
+from zklisp_tpu_torch.prove import cvm as t_cvm
 from zklisp_tpu_torch.prove import formats as t_formats
 from zklisp_tpu_torch.prove import params as t_params
 from zklisp_tpu_torch.prove import prover as t_prover
@@ -55,12 +65,64 @@ def port_setup():
     return prog, pi, trace, air, air_pi
 
 
-@pytest.fixture(scope="module")
-def port_proof(port_setup):
+SWITCHES = ("ZKL_NO_MXU_NTT", "ZKL_NO_MXU_DEEP", "ZKL_CVM_LEVEL",
+            "ZKL_NO_FUSED_FRI")
+DEFAULT_FORCED = {"ZKL_CVM_LEVEL": "1"}
+EARLIER = {"ZKL_NO_MXU_NTT": "1", "ZKL_NO_MXU_DEEP": "1",
+           "ZKL_CVM_LEVEL": "0", "ZKL_NO_FUSED_FRI": "1"}
+
+
+@contextlib.contextmanager
+def _configuration(env):
+    """Set the four switches to `env` (unset where it names none) and
+    count the calls that tell the two configurations apart."""
+    saved = {k: os.environ.pop(k, None) for k in SWITCHES}
+    os.environ.update(env)
+    calls = {"field_matmul": 0, "execute_leveled": 0, "fri_layers_chain": 0,
+             "fri_layers_loop": 0}
+    real = {"field_matmul": (t_mxu, t_mxu.field_matmul),
+            "execute_leveled": (t_cvm, t_cvm.execute_leveled),
+            "fri_layers_chain": (t_sd, t_sd.fri_layers_chain),
+            "fri_layers_loop": (t_sd, t_sd.fri_layers_loop)}
+
+    def spy(name, fn):
+        def wrapped(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+        return wrapped
+
+    for name, (mod, fn) in real.items():
+        setattr(mod, name, spy(name, fn))
+    try:
+        yield calls
+    finally:
+        for name, (mod, fn) in real.items():
+            setattr(mod, name, fn)
+        for k in SWITCHES:
+            os.environ.pop(k, None)
+            if saved[k] is not None:
+                os.environ[k] = saved[k]
+
+
+def _prove(port_setup, env):
     _, _, trace, air, air_pi = port_setup
     assert (trace.length, trace.width) == (1024, 219)
     opts = t_params.ProofOptions(num_queries=8, blowup=8, grinding_factor=0)
-    return t_sd.prove_trace(trace, air, air_pi, opts, device="cpu")
+    with _configuration(env) as calls:
+        proof = t_sd.prove_trace(trace, air, air_pi, opts, device="cpu")
+    return proof, calls
+
+
+@pytest.fixture(scope="module")
+def port_proof(port_setup):
+    """The configuration the card runs by default, forced on the CPU."""
+    proof, calls = _prove(port_setup, DEFAULT_FORCED)
+    # iNTT + coset NTT of the trace chunk(s), quotient interpolation and
+    # re-LDE: two products each; plus the DEEP dot
+    assert calls["field_matmul"] >= 9
+    assert calls["execute_leveled"] == 1
+    assert (calls["fri_layers_chain"], calls["fri_layers_loop"]) == (1, 0)
+    return proof
 
 
 @pytest.fixture(scope="module")
@@ -110,6 +172,19 @@ def test_port_verifier_rejects_a_flipped_byte(port_setup, port_proof):
 def test_port_proof_bytes_equal_host_reference(port_proof, host_proof_bytes):
     got = t_formats.serialize_stark_proof(port_proof)
     assert len(got) == len(host_proof_bytes)
+    assert got == host_proof_bytes
+
+
+def test_earlier_configuration_has_the_same_bytes(port_setup, port_proof,
+                                                  host_proof_bytes):
+    """All four kill switches set: none of the new paths runs, and the
+    proof has the same bytes as the default configuration's and the host
+    reference's."""
+    proof, calls = _prove(port_setup, EARLIER)
+    assert calls == {"field_matmul": 0, "execute_leveled": 0,
+                     "fri_layers_chain": 0, "fri_layers_loop": 1}
+    got = t_formats.serialize_stark_proof(proof)
+    assert got == t_formats.serialize_stark_proof(port_proof)
     assert got == host_proof_bytes
 
 

@@ -14,76 +14,37 @@ tensor it launches the kernel or raises: there is no fallback.
 
 The library is built with nvcc for sm_90a from the source in this
 package at first use, into the git-ignored zklisp_tpu_torch/build/, and
-loaded with ctypes.
+loaded with ctypes (cuda_build.KernelLibrary).
 """
 
 from __future__ import annotations
 
 import ctypes
-import os
-import shutil
-import subprocess
-import threading
-import time
 
 import torch
 
+from ..cuda_build import KernelLibrary
 from ..field import limb
 from . import poseidon as pos
 from . import poseidon_host as _ph
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "poseidon12.cu")
-BUILD_DIR = os.path.join(_PKG, "build")
-LIB_PATH = os.path.join(BUILD_DIR, "libposeidon12.so")
-
-_lock = threading.Lock()
-_lib = None
-build_info = {"seconds": None, "log": ""}
+_KERNEL = KernelLibrary("poseidon12")
+SOURCE = _KERNEL.source
+build_info = _KERNEL.build_info
 
 
-def _nvcc() -> str:
-    exe = shutil.which("nvcc")
-    if exe is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
-        exe = "/usr/local/cuda/bin/nvcc"
-    if exe is None:
-        raise RuntimeError("nvcc not found: the poseidon12 kernel cannot "
-                           "be built on this machine")
-    return exe
-
-
-def build_command() -> list:
-    return [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-            "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-            "-Xptxas", "-v", "-o", LIB_PATH, SOURCE]
+def _declare(lib) -> None:
+    lib.poseidon12_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_void_p]
+    lib.poseidon12_launch.restype = ctypes.c_int
 
 
 def load():
     """Build (when missing or older than the source) and load the kernel
     library; raises when it cannot be built or loaded."""
-    global _lib
-    with _lock:
-        if _lib is not None:
-            return _lib
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        if (not os.path.exists(LIB_PATH)
-                or os.path.getmtime(LIB_PATH) < os.path.getmtime(SOURCE)):
-            t0 = time.time()
-            res = subprocess.run(build_command(), capture_output=True,
-                                 text=True, timeout=600)
-            build_info["seconds"] = time.time() - t0
-            build_info["log"] = (res.stdout + res.stderr).strip()
-            if res.returncode != 0:
-                raise RuntimeError("nvcc failed for poseidon12.cu:\n"
-                                   + build_info["log"])
-        lib = ctypes.CDLL(LIB_PATH)
-        lib.poseidon12_launch.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-            ctypes.c_void_p]
-        lib.poseidon12_launch.restype = ctypes.c_int
-        _lib = lib
-        return _lib
+    return _KERNEL.load(_declare)
 
 
 _SUITE_CACHE: dict = {}

@@ -28,6 +28,20 @@ from .poseidon_host import _dom_fe
 
 POW2_64_INT = f128.POW2_64
 
+_FE_CACHE: dict = {}
+
+
+def _fe_const(value: int, device):
+    """(1, 8) limb tensor of one field constant, uploaded once per
+    device: the sponges below run inside loops that must not touch the
+    host (the FRI chain)."""
+    key = (value, str(device))
+    t = _FE_CACHE.get(key)
+    if t is None:
+        t = limb.from_ints([value], device)
+        _FE_CACHE[key] = t
+    return t
+
 
 def permute12_batch(states, suite_id: bytes, rounds: int | None = None):
     """states: (..., 12, 8) -> (..., 12, 8) after full Poseidon2."""
@@ -48,7 +62,7 @@ def sponge_fes(chunk_fes, domain: bytes, rounds: int | None = None):
     dev = chunk_fes.device
     _, _, dom = poseidon_cuda.suite_tensors(pos.HASHER_SUITE_ID, rounds, dev)
 
-    dfe = limb.from_ints([_dom_fe(domain)], dev)             # (1, 8)
+    dfe = _fe_const(_dom_fe(domain), dev)                    # (1, 8)
     total = 1 + C
     state = limb.zeros((B, 12), dev)
     state[:, 10:] = dom
@@ -79,7 +93,7 @@ def fold_row_chunks(rows):
         rows = torch.cat([rows, limb.zeros((B, 1), rows.device)], dim=1)
     e0 = rows[:, 0::2]
     e1 = rows[:, 1::2]
-    p64 = limb.from_ints([POW2_64_INT], rows.device)
+    p64 = _fe_const(POW2_64_INT, rows.device)
     return limb.add(e0, limb.mul(e1, p64))
 
 

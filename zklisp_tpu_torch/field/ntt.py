@@ -1,9 +1,14 @@
-"""Radix-2 NTT / iNTT / coset LDE over f128 limb tensors (PyTorch).
+"""NTT / iNTT / coset LDE over f128 limb tensors (PyTorch).
 
-Iterative decimation-in-time: one bit-reversal gather up front, then
-log2(n) butterfly stages, each a reshape + slice + one batched limb
-multiply.  Every function is batched over leading axes: x is
-(..., n, 8), so a whole block of trace columns transforms at once.
+Transforms of n >= MXU_NTT_MIN points run as the four-step digit-plane
+matrix NTT of field/mxu.py (through the `digit_dot` kernel on the card);
+ZKL_NO_MXU_NTT=1 forces radix-2 for every size (A/B kill switch, read at
+call time).  Same exact outputs either way.
+
+Radix-2 is iterative decimation-in-time: one bit-reversal gather up
+front, then log2(n) butterfly stages, each a reshape + slice + one
+batched limb multiply.  Every function is batched over leading axes: x
+is (..., n, 8), so a whole block of trace columns transforms at once.
 
 Twiddle and coset-offset tables are built on the host (log-doubling on
 the numpy limb path) and uploaded once per (size, device).
@@ -14,17 +19,27 @@ forward NTT.  The coset offset is the f128 multiplicative generator 3.
 
 from __future__ import annotations
 
+import os
+
 import numpy as _np
 import torch
 import torch.nn.functional as _F
 
-from . import f128, limb
+from . import f128, limb, mxu
 from . import limb_host as _lh
 from . import ntt_host as _nh
 
 DEFAULT_COSET_OFFSET = f128.GENERATOR  # 3
 
+# Transforms at or above this size take the four-step matrix path; small
+# ones stay radix-2 (their matrix tiles would be mostly padding).
+MXU_NTT_MIN = 512
+
 _TABLES: dict = {}
+
+
+def _four_step(n: int) -> bool:
+    return n >= MXU_NTT_MIN and not os.environ.get("ZKL_NO_MXU_NTT")
 
 
 def _cached(key, device, make):
@@ -83,6 +98,8 @@ def ntt(x):
     n = x.shape[-2]
     if n == 1:
         return x
+    if _four_step(n):
+        return mxu.ntt_four_step(x, inverse=False)
     return _butterflies(x, powers_table(n.bit_length() - 1, x.device))
 
 
@@ -91,6 +108,8 @@ def intt(y):
     n = y.shape[-2]
     if n == 1:
         return y
+    if _four_step(n):
+        return mxu.ntt_four_step(y, inverse=True)
     x = _butterflies(y, powers_table(n.bit_length() - 1, y.device,
                                      inverse=True))
     return limb.mul(x, limb.from_ints([f128.inv(n % f128.P)], y.device))

@@ -3,7 +3,7 @@ every heavy phase on the device (counterpart of the JAX package's
 prove/stark_device.py; byte-identical proofs).
 
   lde                trace polys + LDE (batched iNTT + coset NTT, in
-                     column chunks)
+                     column chunks; four-step matrix NTT from 512 points)
   trace_commit       row-chunked Poseidon leaves + tree (CUDA kernel)
   composition        Poseidon/ROM scan blocks + constraint bytecode VM,
                      on the stride-2 sub-domain when ce_blowup < blowup
@@ -11,25 +11,38 @@ prove/stark_device.py; byte-identical proofs).
                      Q columns, re-LDE
   constraint_commit
   ood                chunked fused dots against z-power tables
-  deep               product-tree inverses + row-chunked limb dot
-  fri                per-layer commit -> host coin reseed/draw -> fold
+  deep               product-tree inverses + the coefficient dot as one
+                     digit-plane matrix product over the whole domain
+  fri                the whole chain (commit -> coin reseed/draw -> fold,
+                     per layer) on the device, one read-back of the roots
   grind              proof-of-work scan on the device
   openings           row/path/value gathers on the device
 
+This is the configuration the JAX package runs by default on a device.
+Its kill switches carry over under the same names, read at call time:
+ZKL_NO_MXU_NTT (radix-2 NTT, field/ntt.py), ZKL_NO_MXU_DEEP (row-chunked
+limb dot), ZKL_CVM_LEVEL=0 (stack executor, prove/cvm.py) and
+ZKL_NO_FUSED_FRI (per-layer FRI loop with the host coin, one blocking
+root read-back per layer).  Every combination gives the same proof bytes.
+
 Fiat-Shamir stays on the host (scalar, microseconds): the coin is
 reseeded with the trace root, the constraint root,
-hash_elements(ood_evals) and each FRI root.  Every root is read back with
-a blocking copy before it is absorbed, so the transcript order cannot
-run ahead of the device.
+hash_elements(ood_evals) and each FRI root.  The trace and constraint
+roots are read back with a blocking copy before they are absorbed.  The
+FRI chain carries the coin's seed on the device (the coin is two
+Poseidon sponges) and the host coin replays the reseeds from the roots
+afterwards.
 
 Memory: the (w, N, 8) int32 trace LDE is the only full-size resident.
 The plain limb ops widen to int64 and form 16-column products, so the
-NTT runs in column chunks and leaf hashing / DEEP in row chunks.
+NTT runs in column chunks sized from their transient bytes and leaf
+hashing in row chunks.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import List
 
 import numpy as _np
@@ -37,8 +50,9 @@ import torch
 
 from ..air.zk_air import ZkLispAir, _p_last_lde
 from ..crypto import poseidon as pos
+from ..crypto import poseidon_torch as pt
 from ..device import resolve
-from ..field import f128, limb, ntt
+from ..field import f128, limb, mxu, ntt
 from ..field import limb_host as _lh
 from ..field import ntt_host as _nh
 from ..trace.layout import STEPS_PER_LEVEL_P2
@@ -53,8 +67,12 @@ from .stark import (FriLayerOpenings, ProofContext, QueryOpenings,
 
 P = f128.P
 OFFSET = ntt.DEFAULT_COSET_OFFSET
-LDE_COL_CHUNK = 128          # columns per NTT batch
-DEEP_ROW_CHUNK = 1 << 14     # rows per DEEP dot
+LDE_CHUNK_BYTES = 2 << 30    # transient bytes of one NTT column batch
+# what one LDE point costs while its column is in flight: 16-18 int64
+# product columns, about a dozen temporaries of that size live at once in
+# `limb._reduce_cols`, plus the four int32 digit-plane products
+LDE_BYTES_PER_POINT = 1536
+DEEP_ROW_CHUNK = 1 << 14     # rows per DEEP dot (limb-dot form)
 GROUP_CHUNK = 32             # boundary groups per batched term
 
 _STAGE_CACHE: dict = {}
@@ -68,11 +86,15 @@ def _to_host_ints(t) -> List[int]:
 # LDE
 # ---------------------------------------------------------------------------
 
-def lde_columns(cols, blowup: int, col_chunk: int = LDE_COL_CHUNK):
+def lde_columns(cols, blowup: int, col_chunk: int | None = None):
     """(C, n, 8) trace columns -> (polys (C, n, 8), lde (C, N, 8)),
-    `col_chunk` columns at a time (bounds the int64 product transients);
-    results are written in place into preallocated outputs."""
+    `col_chunk` columns at a time (default: as many as keep the int64
+    product transients under LDE_CHUNK_BYTES); results are written in
+    place into preallocated outputs."""
     C, n = cols.shape[0], cols.shape[1]
+    if col_chunk is None:
+        col_chunk = max(1, LDE_CHUNK_BYTES
+                        // (n * blowup * LDE_BYTES_PER_POINT))
     polys = torch.empty_like(cols)
     lde = torch.empty((C, n * blowup, limb.NLIMB), dtype=cols.dtype,
                       device=cols.device)
@@ -91,13 +113,15 @@ class _DevCommitment:
     """Merkle commitment whose levels stay on the device.
 
     Only the root crosses to the host at commit time (needed for FS
-    reseeding; the copy blocks until the tree is built); sibling paths
-    are gathered on the device and transferred in one small copy
-    (`open_paths_multi`)."""
+    reseeding; the copy blocks until the tree is built) unless the
+    caller hands it in (the FRI chain reads all its roots in one copy);
+    sibling paths are gathered on the device and transferred in one
+    small copy (`open_paths_multi`)."""
 
-    def __init__(self, levels) -> None:
+    def __init__(self, levels, root_fe: int | None = None) -> None:
         self.levels = levels                     # tensors, (m, 8)
-        self.root_fe = int(limb.to_ints(levels[-1])[0])
+        self.root_fe = (int(limb.to_ints(levels[-1])[0])
+                        if root_fe is None else root_fe)
 
     @property
     def root(self) -> bytes:
@@ -309,6 +333,27 @@ def deep_chunk(lde_blk, q_blk, coeffs, gz, gzg, inv_xz_blk, inv_xzg_blk):
     return limb.add(t1, t2)
 
 
+def deep_planes(coeffs: List[int], device):
+    """The DEEP coefficients as the stacked digit planes `deep_mxu`
+    takes: a (w+Q, 1) weight matrix, built on the host per segment."""
+    return mxu.stack_planes(
+        *mxu.wmat_planes(mxu.wmat_from_ints([[c] for c in coeffs])),
+        device)
+
+
+def deep_mxu(trace_lde, q_lde, wt, gz, gzg, inv_xz, inv_xzg):
+    """Whole-domain DEEP composition: the coefficient dot
+    gt[x] = sum_i c_i * col_i[x] is one (N, (w+Q)*8) x ((w+Q)*8, 16)
+    digit-plane matrix product (field/mxu.py) instead of a limb dot that
+    materializes (N, w+Q, 8, 8) products."""
+    allc = torch.cat([trace_lde, q_lde])                 # (w+Q, N, 8)
+    gt = mxu.field_matmul(allc.transpose(0, 1), wt)[:, 0]
+    del allc
+    t1 = limb.mul(limb.sub(gt, gz[None]), inv_xz)
+    t2 = limb.mul(limb.sub(gt, gzg[None]), inv_xzg)
+    return limb.add(t1, t2)
+
+
 def fri_fold(layer, alpha, x0, inv_2x0):
     half = layer.shape[0] // 2
     a_f = alpha[None]
@@ -338,6 +383,68 @@ def _x0_tables(size: int, device):
     out = (limb.from_ints(x0s, device), limb.from_ints(invs, device))
     _STAGE_CACHE[key] = out
     return out
+
+
+def _fri_pairs_commit(layer):
+    """Tree levels over the (half, 2) pair rows of one FRI layer."""
+    half = layer.shape[0] // 2
+    return kernels.commit_rows(
+        torch.stack([layer[:half], layer[half:]], dim=1), 2)
+
+
+def fri_layers_loop(deep, coin: RandomCoin, num_layers: int):
+    """FRI commit phase, one layer at a time with the host coin: commit,
+    read the root back (blocking), reseed, draw alpha, fold.  Returns
+    (commitments, layers, final layer); `coin` ends reseeded with every
+    root."""
+    dev = deep.device
+    comms: List[_DevCommitment] = []
+    layers = []
+    layer = deep
+    for _ in range(num_layers):
+        comm = _DevCommitment(_fri_pairs_commit(layer))
+        comms.append(comm)
+        layers.append(layer)                  # full layers stay on device
+        coin.reseed(comm.root)
+        alpha = limb.from_ints([coin.draw()], dev)[0]
+        layer = fri_fold(layer, alpha, *_x0_tables(layer.shape[0], dev))
+    return comms, layers, layer
+
+
+def fri_layers_chain(deep, coin: RandomCoin, num_layers: int):
+    """The same phase with the coin on the device, so the host never
+    waits inside the loop: reseed = sponge(seed_fe, root_fe) under
+    zkl/winter/hash/merge, draw = sponge(seed_fe, 1) under
+    zkl/winter/hash/merge_with_int.  A drawn candidate IS the digest's
+    lane-0 field element, always canonical, so the host coin's retry
+    loop can never trigger and the device draw is exact.  All roots come
+    back in ONE copy at the end; the host coin then replays the reseeds
+    (draws do not mutate the seed, so the alphas need no replay).  Same
+    returns and same final coin state as `fri_layers_loop`."""
+    dev = deep.device
+    seed = limb.from_ints([f128.fold_bytes32_to_fe(coin.seed)], dev)[0]
+    one = limb.from_ints([1], dev)[0]
+    levels_all, layers, roots = [], [], []
+    layer = deep
+    for _ in range(num_layers):
+        levels = _fri_pairs_commit(layer)
+        root = levels[-1][0]                                  # (8,)
+        seed = pt.sponge_fes(torch.stack([seed, root])[None],
+                             b"zkl/winter/hash/merge")[0]
+        alpha = pt.sponge_fes(torch.stack([seed, one])[None],
+                              b"zkl/winter/hash/merge_with_int")[0]
+        levels_all.append(levels)
+        layers.append(layer)
+        roots.append(root)
+        layer = fri_fold(layer, alpha, *_x0_tables(layer.shape[0], dev))
+    comms = []
+    if roots:
+        root_ints = limb.to_ints(torch.stack(roots))
+        for levels, r in zip(levels_all, root_ints):
+            comm = _DevCommitment(levels, root_fe=int(r))
+            comms.append(comm)
+            coin.reseed(comm.root)
+    return comms, layers, layer
 
 
 # ---------------------------------------------------------------------------
@@ -456,34 +563,28 @@ def prove_trace(trace, air: ZkLispAir, air_pi, options: ProofOptions,
         gzg = (gzg + sum(d * q for d, q in zip(deltas, ood_q_next))) % P
 
         inv_xz, inv_xzg = deep_inv(_lde_xs(n, blowup, dev), fe(z), fe(zg))
-        coeffs = limb.from_ints(gammas + deltas, dev)
         gz_dev, gzg_dev = fe(gz), fe(gzg)
-        chunk = min(DEEP_ROW_CHUNK, N)
-        deep = torch.cat([
-            deep_chunk(trace_lde[:, s:s + chunk], q_lde[:, s:s + chunk],
-                       coeffs, gz_dev, gzg_dev, inv_xz[s:s + chunk],
-                       inv_xzg[s:s + chunk])
-            for s in range(0, N, chunk)])
+        if not os.environ.get("ZKL_NO_MXU_DEEP"):
+            deep = deep_mxu(trace_lde, q_lde,
+                            deep_planes(gammas + deltas, dev),
+                            gz_dev, gzg_dev, inv_xz, inv_xzg)
+        else:
+            coeffs = limb.from_ints(gammas + deltas, dev)
+            chunk = min(DEEP_ROW_CHUNK, N)
+            deep = torch.cat([
+                deep_chunk(trace_lde[:, s:s + chunk],
+                           q_lde[:, s:s + chunk], coeffs, gz_dev, gzg_dev,
+                           inv_xz[s:s + chunk], inv_xzg[s:s + chunk])
+                for s in range(0, N, chunk)])
         del inv_xz, inv_xzg
 
-    # stage 6: FRI, one layer at a time with the host coin
+    # stage 6: FRI
     with phase("fri", dev):
         num_layers = options.num_fri_layers(N)
-        fri_layers_vals = []
-        fri_comms: List[_DevCommitment] = []
-        layer = deep
-        size = N
-        for d in range(num_layers):
-            half = size // 2
-            pair_rows = torch.stack([layer[:half], layer[half:]], dim=1)
-            comm = _DevCommitment(kernels.commit_rows(pair_rows, 2))
-            fri_comms.append(comm)
-            fri_layers_vals.append(layer)     # full layers stay on device
-            coin.reseed(comm.root)
-            alpha = coin.draw()
-            x0s, inv2x0 = _x0_tables(size, dev)
-            layer = fri_fold(layer, fe(alpha), x0s, inv2x0)
-            size = half
+        fri_phase = (fri_layers_loop if os.environ.get("ZKL_NO_FUSED_FRI")
+                     else fri_layers_chain)
+        fri_comms, fri_layers_vals, layer = fri_phase(deep, coin,
+                                                      num_layers)
 
         rem_host = limb.to_numpy_u32(layer)
         rem_ints = [int(v) for v in _lh.to_ints(
