@@ -24,8 +24,10 @@ Each phase prints one JSON object on a line of its own:
            native library, and what ptxas reports for each kernel
   kernels  poseidon12 == permute12_plain (fixed batches, edge states) and
            digit_dot == digit_dot_plain (the probe's shape in u8 and s8,
-           the main path's shapes, ragged shapes, all-255 digits), on the
-           card, tolerance 0
+           the main path's shapes, ragged shapes, the edges of the TMA
+           tiling in u8 and s8, all-255 digits), on the card, tolerance
+           0; digit_dot through the wrapper and through the port's
+           first kernel, kept in its source as a yardstick
   commit   Merkle commit of a (219, 8192, 8) array on the card: through
            the kernel vs through the plain permutation
   prove    per configuration (one line each, headed by the card's name
@@ -33,8 +35,9 @@ Each phase prints one JSON object on a line of its own:
            rows/s, peak memory, kernel launches; then the byte comparison
   shapes   each kernel == its plain version at every shape the default
            run gave it, and both versions' times (poseidon12: at the two
-           largest batches; digit_dot: at every shape, with the time of
-           `torch._int_mm` beside them as the library's yardstick)
+           largest batches; digit_dot: at every shape, the wgmma
+           kernel, the yardstick and `torch._int_mm`, the library's
+           call, timed in turns, and the wrapper with its host work)
 then the `{"kernels": [...]}` summary, the whole run's seconds and, last,
 the `{"ok": true, ...}` line.  Any failed phase ends the run with a
 non-zero exit code and no result line.  Without a CUDA card the script
@@ -184,12 +187,13 @@ def phase_device():
 
 
 def ptxas_lines(log: str) -> list:
-    """Per kernel: its entry name (mangled; digit_dot's template values
-    show as ILb<signed>ELi<warps M>ELi<warps N>ELi<n-tiles>E) with ptxas'
-    register / shared-memory / spill lines."""
+    """Per kernel: its entry name (mangled, template values included) with
+    ptxas' register / shared-memory / spill lines and any warning (a
+    serialised wgmma shows there)."""
     keep = [l.strip() for l in log.splitlines()
             if "Compiling entry function" in l or "registers" in l
-            or "spill" in l]
+            or "spill" in l or "warning" in l.lower()
+            or "wgmma" in l]
     return [l.replace("ptxas info    : ", "") for l in keep]
 
 
@@ -249,12 +253,36 @@ def rand_digits(rng, shape, signed: bool = False):
     return torch.from_numpy(arr).to(DEV)
 
 
-def dd_err(a, wt) -> int:
-    """max |digit_dot - digit_dot_plain| on the card."""
-    got = dd.digit_dot(a, wt)
+# the two C entry points of csrc/digit_dot.cu
+DD_ENTRIES = {"wgmma": "digit_dot_launch",
+              "mma_sync": "digit_dot_launch_mma_sync"}
+DD_DESIGNS = {"wgmma": "TMA + mbarrier ring + wgmma (the wrapper's kernel)",
+              "mma_sync": "mma.sync, synchronous loads (the port's first "
+                          "kernel, kept as a yardstick)"}
+
+
+def raw_dot(a, wt, design: str):
+    """One launch of `design` through its C entry point, outside the
+    wrapper and its launch count."""
+    M, N = a.shape[0], wt.shape[0]
+    a2, wt2, k = dd.operands(a, wt)
+    out = torch.empty((M, N), dtype=torch.int32, device=DEV)
+    err = getattr(dd.load(), DD_ENTRIES[design])(
+        a2.data_ptr(), wt2.data_ptr(), out.data_ptr(), M, N, k,
+        int(a.dtype == torch.int8), torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        fail(f"digit_dot {design} at {(M, k, N)}: {dd.launch_error(err)}")
+    return out
+
+
+def dd_errs(a, wt) -> dict:
+    """max |kernel - digit_dot_plain| on the card: through the wrapper
+    (the wgmma kernel) and through the yardstick's entry point."""
     ref = dd.digit_dot_plain(a, wt)
+    errs = {"wrapper": max_abs_diff(dd.digit_dot(a, wt), ref),
+            "mma_sync": max_abs_diff(raw_dot(a, wt, "mma_sync"), ref)}
     torch.cuda.synchronize()
-    return max_abs_diff(got, ref)
+    return errs
 
 
 def lde_chunk() -> int:
@@ -265,24 +293,28 @@ def lde_chunk() -> int:
 
 
 def phase_kernels_digit_dot():
-    """digit_dot vs digit_dot_plain on the card, exact equality: the
-    probe's shape and data (u8 and s8), the main path's shapes (one
-    product, and the four products stacked as `field_matmul` launches
-    them), ragged shapes and the accumulation edge."""
+    """digit_dot vs digit_dot_plain on the card, exact equality, through
+    the wrapper and through the yardstick: the probe's shape and data (u8 and s8), the
+    main path's shapes (one product, and the four products stacked as
+    `field_matmul` launches them), ragged shapes, the edges of the tiling
+    (K = 32 and K not a multiple of the 128-byte box; M and N not
+    multiples of 64, 128 or 256; N = 8 ... 40; grids that take each of
+    the three tile widths) in u8 and s8, and the
+    accumulation edge (all-255 and all -128 digits at K = 32,768)."""
     rng = np.random.default_rng(0)
     checked = []
     max_err = 0
 
     def check(what, a, wt):
         nonlocal max_err
-        err = dd_err(a, wt)
-        max_err = max(max_err, err)
+        errs = dd_errs(a, wt)
+        max_err = max(max_err, *errs.values())
         checked.append({"what": what, "M": a.shape[0], "K": a.shape[1],
                         "N": wt.shape[0], "dtype": str(a.dtype)[6:],
-                        "equal": err == 0})
-        if err != 0:
+                        "equal": {str(k): v == 0 for k, v in errs.items()}})
+        if any(errs.values()):
             fail(f"digit_dot != plain at {what} {tuple(a.shape)} x "
-                 f"{tuple(wt.shape)}: max abs err {err}")
+                 f"{tuple(wt.shape)}: max abs err {errs}")
 
     # the probe: (192, 96) . (96, 512), digits below 128, seed 0
     w8 = rng.integers(0, 128, size=(192, 96), dtype=np.uint8)
@@ -308,40 +340,95 @@ def phase_kernels_digit_dot():
             ("ragged", 300, 1000, 130),
             ("ragged N=33", 257, 64, 33)]:
         check(what, rand_digits(rng, (M, K)), rand_digits(rng, (N, K)))
-    check("s8 full range", rand_digits(rng, (130, 96), True),
-          rand_digits(rng, (70, 96), True))
+    for signed in (False, True):
+        for what, M, K, N in [
+                ("K=32", 200, 32, 136), ("K=1760", 129, 1760, 40),
+                ("K=2080", 257, 2080, 264), ("M=65 N=129", 65, 512, 129),
+                ("M=129 N=257", 129, 640, 257), ("M=257 N=65", 257, 96, 65),
+                ("N=8", 300, 256, 8), ("N=16", 129, 160, 16),
+                ("N=24", 65, 2080, 24), ("N=40", 257, 1760, 40),
+                ("N=8 M=1", 1, 32, 8),
+                # grids large enough for the 128 x 256 tiles
+                ("wide tiles, ragged", 4225, 64, 2051),
+                ("wide tiles, ragged", 4225, 160, 2051),
+                ("wide tiles, N%4=0", 4161, 96, 2056),
+                ("wide tiles, N%4=0", 4161, 2080, 2056)]:
+            check(what, rand_digits(rng, (M, K), signed),
+                  rand_digits(rng, (N, K), signed))
     full = torch.full((200, 2048), 255, dtype=torch.uint8, device=DEV)
     check("all 255, K=2048", full, full[:72])
     check("all 255, K=4096*8", full.repeat(1, 16)[:40], full.repeat(1, 16))
+    low = torch.full((130, 32768), -128, dtype=torch.int8, device=DEV)
+    check("all -128, K=4096*8", low, low[:70])
     emit({"phase": "kernels", "kernel": "digit_dot", "tolerance": 0,
-          "max_abs_err": max_err, "lde_col_chunk": C, "checked": checked})
+          "max_abs_err": max_err, "lde_col_chunk": C, "designs": DD_DESIGNS,
+          "checked": checked})
     return max_err
 
 
-def int_mm_ms(M: int, K: int, N: int):
-    """Time of the one PyTorch call that computes the same function on
-    s8 inputs, `torch._int_mm` (a yardstick only: the port never calls
-    it); None where it refuses the shape."""
+def device_ms(fn, n: int = 10):
+    """Device time of one fn() in ms: n calls queued behind a spin kernel
+    (about 0.15 ms per call, more than the host needs to issue one), so
+    the two events see the kernels back to back and not the host's
+    launch overhead.  Also returns the host's time to issue one call, in
+    microseconds (the loop's wall time over n: the calls only queue)."""
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(n * 3e5))
+    a.record()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    host_us = (time.perf_counter() - t0) / n * 1e6
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / n, host_us
+
+
+def turns_ms(fns: dict, rounds: int = 4):
+    """device_ms of each function, taken in turns (the order reversed
+    every round); the median per function of the device ms and of the
+    host's microseconds per call."""
+    names = list(fns)
+    times = {k: [] for k in names}
+    for r in range(rounds):
+        for k in (names if r % 2 == 0 else names[::-1]):
+            times[k].append(device_ms(fns[k]))
+    return ({k: float(np.median([t[0] for t in v]))
+             for k, v in times.items()},
+            {k: float(np.median([t[1] for t in v]))
+             for k, v in times.items()})
+
+
+def int_mm_call(M: int, K: int, N: int):
+    """The one PyTorch call that computes the same function on s8 inputs,
+    `torch._int_mm` (a yardstick only: the port never calls it), at this
+    shape; None where it refuses the shape."""
     rng = np.random.default_rng(5)
-    a = torch.from_numpy(rng.integers(0, 128, size=(M, K),
+    a = torch.from_numpy(rng.integers(-128, 128, size=(M, K),
                                       dtype=np.int8)).to(DEV)
-    wt = torch.from_numpy(rng.integers(0, 128, size=(N, K),
+    wt = torch.from_numpy(rng.integers(-128, 128, size=(N, K),
                                        dtype=np.int8)).to(DEV)
     try:
         if max_abs_diff(torch._int_mm(a, wt.t()),
                         dd.digit_dot_plain(a, wt)) != 0:
             fail("torch._int_mm disagrees with digit_dot_plain")
-        return cuda_ms(lambda: torch._int_mm(a, wt.t()))
     except RuntimeError as e:
         sys.stderr.write(f"chip_smoke: torch._int_mm refused "
                          f"({M}, {K}) x ({K}, {N}): {e}\n")
         return None
+    return lambda: torch._int_mm(a, wt.t())
 
 
 def phase_shapes_digit_dot(shape_log):
-    """digit_dot vs digit_dot_plain at every distinct (M, K, N) the main
-    path launched (exact equality), and the times of kernel, plain version
-    and library call at each of them (they are few), costliest first."""
+    """Every distinct (M, K, N) the main path launched, costliest first:
+    the wrapper and the yardstick vs digit_dot_plain (exact equality),
+    then the device times of the wgmma kernel, the yardstick and
+    `torch._int_mm`, taken in turns; the wrapper's time with its host work
+    (one call between two events, as the first slice timed it); and the
+    plain version's."""
     rng = np.random.default_rng(20240603)
     shapes = sorted(set(shape_log), key=lambda s: -s[0] * s[1] * s[2])
     checked, timed = [], []
@@ -349,31 +436,46 @@ def phase_shapes_digit_dot(shape_log):
     for M, K, N in shapes:
         a = rand_digits(rng, (M, K))
         wt = rand_digits(rng, (N, K))
-        err = dd_err(a, wt)
-        max_err = max(max_err, err)
-        checked.append({"M": M, "K": K, "N": N, "equal": err == 0,
+        errs = dd_errs(a, wt)
+        max_err = max(max_err, *errs.values())
+        checked.append({"M": M, "K": K, "N": N,
+                        "equal": {str(k): v == 0 for k, v in errs.items()},
                         "launches_main_path": shape_log.count((M, K, N))})
-        if err != 0:
-            fail(f"digit_dot != plain at main-path shape {(M, K, N)}")
-        ms = cuda_ms(lambda: dd.digit_dot(a, wt))
+        if any(errs.values()):
+            fail(f"digit_dot != plain at main-path shape {(M, K, N)}: "
+                 f"max abs err {errs}")
+        fns = {d: (lambda d=d: raw_dot(a, wt, d)) for d in DD_ENTRIES}
+        lib_fn = int_mm_call(M, K, N)
+        if lib_fn is not None:
+            fns["library"] = lib_fn
+        ms, host_us = turns_ms(fns)
+        wrapper_ms = cuda_ms(lambda: dd.digit_dot(a, wt))
         # the comparison above was the plain version's warm-up
         plain_ms = cuda_ms(lambda: dd.digit_dot_plain(a, wt), reps=2,
                            warm=0)
         ops_ms = 2.0 * M * K * N / INT8_OPS_PER_S * 1e3
         bytes_ms = (M * K + K * N + 4.0 * M * N) / HBM_BYTES_PER_S * 1e3
-        timed.append({"M": M, "K": K, "N": N, "ms": ms,
+        bound_ms = max(ops_ms, bytes_ms)
+        timed.append({"M": M, "K": K, "N": N, "ms": ms["wgmma"],
                       "launches_main_path": shape_log.count((M, K, N)),
-                      "plain_ms": plain_ms,
-                      "bound_ms": max(ops_ms, bytes_ms),
+                      "earlier_ms": ms["mma_sync"],
+                      "wrapper_ms": wrapper_ms, "host_us": host_us,
+                      "plain_ms": plain_ms, "bound_ms": bound_ms,
                       "bound_by": ("operations" if ops_ms >= bytes_ms
                                    else "bytes"),
                       "bound_ops_ms": ops_ms, "bound_bytes_ms": bytes_ms,
-                      "library_ms": int_mm_ms(M, K, N),
-                      "tera_ops_per_s": 2.0 * M * K * N / ms / 1e9})
-        del a, wt
+                      "library_ms": ms.get("library"),
+                      "share_of_bound": bound_ms / ms["wgmma"],
+                      "tera_ops_per_s": 2.0 * M * K * N / ms["wgmma"] / 1e9})
+        del a, wt, fns, lib_fn
         torch.cuda.empty_cache()
     emit({"phase": "shapes", "kernel": "digit_dot", "tolerance": 0,
-          "max_abs_err": max_err, "checked": checked, "timed": timed})
+          "max_abs_err": max_err, "timing": "ms, earlier_ms, library_ms: "
+          "device time, 10 launches queued behind a spin kernel, median of "
+          "4 rounds in turns; host_us: the host's time to issue one of "
+          "those calls; wrapper_ms: one digit_dot call between two events, "
+          "host work included, median of 5",
+          "checked": checked, "timed": timed})
     return max_err, timed
 
 
@@ -637,6 +739,8 @@ def kernels_summary(run, errs, timed) -> dict:
          "ms": top_d["ms"], "plain_ms": top_d["plain_ms"],
          "bound_ms": top_d["bound_ms"], "bound_by": top_d["bound_by"],
          "library_ms": top_d["library_ms"],
+         "earlier_ms": top_d["earlier_ms"],
+         "wrapper_ms": top_d["wrapper_ms"],
          "shape_MKN": [top_d["M"], top_d["K"], top_d["N"]],
          "other_shapes": timed["digit_dot"][1:]}]}
 

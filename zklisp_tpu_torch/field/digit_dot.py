@@ -8,12 +8,18 @@ Replaces the Pallas probe kernel of the JAX package
 (scripts/exp_pallas_int8_dot.py, `kernel` inside `make`): one dot of
 8-bit planes with 32-bit accumulation inside a kernel — the product
 inside every `field_matmul` of field/mxu.py.  The kernel is
-csrc/digit_dot.cu: `mma.sync.aligned.m16n8k32` on the integer tensor
-cores (u8 x u8, or s8 x s8 for int8 operands), tiles staged through
-shared memory.  It is bound by operations at the NTT shapes and by bytes
-at the DEEP shape; see the note at the top of the source.
+csrc/digit_dot.cu, built for Hopper: a producer warp feeds a ring of
+shared-memory stages with TMA loads guarded by mbarriers, two consumer
+warpgroups run `wgmma.mma_async` on the integer tensor cores (u8 x u8,
+or s8 x s8 for int8 operands), and the sums leave through shared memory
+as coalesced 16-byte stores.  It is bound by operations at the NTT
+shapes and by bytes at the DEEP shape; see the note at the top of the
+source.  Its build needs nothing beyond nvcc: the TMA descriptors come
+from the driver through `cudaGetDriverEntryPoint`, and the first launch
+of each tile on a device sets the kernel's dynamic shared-memory limit
+(up to 193 KB).
 
-The weights come TRANSPOSED, (N, K) with K contiguous: the instruction
+The weights come TRANSPOSED, (N, K) with K contiguous: 8-bit `wgmma`
 reads both operands along K, and every caller's weights are constants it
 lays out once.  The callers keep K * 255^2 < 2^31, so signed 32-bit
 accumulation is exact.
@@ -36,14 +42,20 @@ SOURCE = _KERNEL.source
 build_info = _KERNEL.build_info
 
 K_ALIGN = 32          # the mma's depth: K is zero-padded to a multiple
+                      # (which also makes each row 16-byte aligned, as the
+                      # TMA unit needs)
 MAX_K = (1 << 31) // (255 * 255)     # 33,025: K * 255^2 < 2^31
 
 
 def _declare(lib) -> None:
-    lib.digit_dot_launch.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    lib.digit_dot_launch.restype = ctypes.c_int
+    ptr, num = ctypes.c_void_p, ctypes.c_int
+    lib.digit_dot_launch.argtypes = [ptr, ptr, ptr, num, num, num, num, ptr]
+    lib.digit_dot_launch.restype = num
+    # the port's first kernel, kept in the source as a yardstick for
+    # chip_smoke.py; the wrapper never calls it
+    lib.digit_dot_launch_mma_sync.argtypes = [ptr, ptr, ptr, num, num, num,
+                                              num, ptr]
+    lib.digit_dot_launch_mma_sync.restype = num
 
 
 def load():
@@ -81,6 +93,31 @@ def _check(a, wt) -> bool:
     return a.dtype == torch.int8
 
 
+def operands(a, wt):
+    """The operands as the kernel takes them: K zero-padded to a multiple
+    of K_ALIGN, rows contiguous, base addresses 16-byte aligned (copied
+    when not).  Returns (a, wt, padded K)."""
+    K = a.shape[1]
+    pad = -K % K_ALIGN
+    if pad:
+        a = _F.pad(a, (0, pad))
+        wt = _F.pad(wt, (0, pad))
+    a = a.contiguous()
+    wt = wt.contiguous()
+    if a.data_ptr() % 16:
+        a = a.clone()
+    if wt.data_ptr() % 16:
+        wt = wt.clone()
+    return a, wt, K + pad
+
+
+def launch_error(err: int) -> str:
+    """What a non-zero return of the C launch functions means."""
+    if err < 0:
+        return f"cuTensorMapEncodeTiled failed: CUresult {-err}"
+    return f"CUDA error {err}"
+
+
 def digit_dot(a, wt):
     """C = A @ Wt^T, exact, int32: a (M, K) and wt (N, K) of one 8-bit
     dtype (uint8 digits, or int8).
@@ -99,25 +136,16 @@ def digit_dot(a, wt):
     if M == 0 or N == 0:
         return out                       # nothing to launch, nothing counted
     lib = load()
-    pad = -K % K_ALIGN
-    if pad:
-        a = _F.pad(a, (0, pad))
-        wt = _F.pad(wt, (0, pad))
-    a = a.contiguous()
-    wt = wt.contiguous()
-    if a.data_ptr() % 16:
-        a = a.clone()
-    if wt.data_ptr() % 16:
-        wt = wt.clone()
+    a, wt, k_padded = operands(a, wt)
     if digit_dot.shape_log is not None:
         digit_dot.shape_log.append((M, K, N))
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.digit_dot_launch(a.data_ptr(), wt.data_ptr(),
-                                   out.data_ptr(), M, N, K + pad,
+                                   out.data_ptr(), M, N, k_padded,
                                    int(signed), stream)
     if err != 0:
-        raise RuntimeError(f"digit_dot launch failed: CUDA error {err}")
+        raise RuntimeError(f"digit_dot launch failed: {launch_error(err)}")
     digit_dot.launches += 1
     return out
 
