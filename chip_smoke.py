@@ -21,23 +21,31 @@ StepProof with `verify_step` — in two configurations:
 Each phase prints one JSON object on a line of its own:
   device   card name and power limit (nvidia-smi), torch and CUDA versions
   build    seconds to build the two kernels (in parallel) and the host
-           native library, and what ptxas reports for each kernel
-  kernels  poseidon12 == permute12_plain (fixed batches, edge states) and
-           digit_dot == digit_dot_plain (the probe's shape in u8 and s8,
-           the main path's shapes, ragged shapes, the edges of the TMA
-           tiling in u8 and s8, all-255 digits), on the card, tolerance
-           0; digit_dot through the wrapper and through the port's
-           first kernel, kept in its source as a yardstick
+           native library, what ptxas reports for each kernel, and for
+           the poseidon12 kernels their dynamic shared memory and SASS
+           opcode counts (cuobjdump)
+  kernels  poseidon12 == permute12_plain (fixed batches, edge states)
+           through the wrapper and through both C entry points (the
+           team kernel and the port's first kernel, kept in its source
+           as a yardstick), and digit_dot == digit_dot_plain (the
+           probe's shape in u8 and s8, the main path's shapes, ragged
+           shapes, the edges of the TMA tiling in u8 and s8, all-255
+           digits), on the card, tolerance 0; digit_dot through the
+           wrapper and through the port's first kernel, kept in its
+           source as a yardstick
   commit   Merkle commit of a (219, 8192, 8) array on the card: through
            the kernel vs through the plain permutation
   prove    per configuration (one line each, headed by the card's name
            and power limit): the segments proved, per-phase seconds,
            rows/s, peak memory, kernel launches; then the byte comparison
   shapes   each kernel == its plain version at every shape the default
-           run gave it, and both versions' times (poseidon12: at the two
-           largest batches; digit_dot: at every shape, the wgmma
-           kernel, the yardstick and `torch._int_mm`, the library's
-           call, timed in turns, and the wrapper with its host work)
+           run gave it, and the times: poseidon12 at every batch, the
+           team kernel and the yardstick as device time in turns, the
+           wrapper with its host work, launches per segment, the bound,
+           then the per-segment sums (plain version: the two largest
+           batches); digit_dot at every shape, the wgmma kernel, the
+           yardstick and `torch._int_mm`, the library's call, timed in
+           turns, and the wrapper with its host work
 then the `{"kernels": [...]}` summary, the whole run's seconds and, last,
 the `{"ok": true, ...}` line.  Any failed phase ends the run with a
 non-zero exit code and no result line.  Without a CUDA card the script
@@ -54,9 +62,12 @@ Options (for development; the default run takes none):
 from __future__ import annotations
 
 import argparse
+import collections
 import concurrent.futures
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -98,16 +109,18 @@ HBM_BYTES_PER_S = 3.35e12
 # integer multiply-add issue rate: 132 SMs x 64 results per clock per SM
 # x 1.98 GHz.  64 per clock per SM is the figure for 32-bit integer
 # multiply and multiply-add at compute capability 9.0 in the CUDA C++
-# Programming Guide's table "Throughput of Native Arithmetic Instructions".
+# Programming Guide's table "Throughput of Native Arithmetic Instructions"
+# (scripts/int_mad_rate.py measures 64.2 for IMAD on an H100 SXM at 700 W).
 INT32_MAD_PER_S = 132 * 64 * 1.98e9
-# poseidon12's design spends, per state and round: 168 field multiplies of
-# four 64x64->128 products each, plus 36 reductions of four such products;
-# a 64x64->128 product is four 32x32->64 multiply-adds.  The count is the
-# schoolbook one: the 24 multiplies of the cubes include 12 squarings,
-# which are counted as full four-product multiplies with no saving for
-# the repeated cross term (3 products would do), so the bound sits 1.5%
-# above what the function strictly needs.
-MAD32_PER_STATE_ROUND = (168 * 4 + 36 * 4) * 4
+# The work of one state and round, in 32x32 -> 64-bit products: the 144
+# MDS products (16 each), 12 squarings (10: the cross products once), 12
+# multiplies (16) and 36 reductions (two folds by the 14-bit constant
+# C = 11520 * 2^32 - 1: 7 each) = 2868.  ptxas makes each product one
+# IMAD.WIDE.U32, which writes two registers (lo and hi) and issues at
+# ~25 per clock per SM, not 64 (scripts/int_mad_rate.py, same card): so a
+# product counts as two multiply-add results at the rate above, and the
+# bound is still below what that instruction can reach.
+MAD32_PER_STATE_ROUND = 2 * (144 * 16 + 12 * 10 + 12 * 16 + 36 * 7)
 BYTES_PER_STATE = 2 * 12 * 8 * 4
 # dense INT8 tensor-core rate (NVIDIA H100 SXM data sheet, no sparsity)
 INT8_OPS_PER_S = 1979e12
@@ -197,6 +210,57 @@ def ptxas_lines(log: str) -> list:
     return [l.replace("ptxas info    : ", "") for l in keep]
 
 
+SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?"
+                       r"([A-Z][A-Z0-9_.]*)([^;]*);")
+
+
+def sass_counts(lib_path: str) -> dict:
+    """Per kernel of a built library (`cuobjdump -sass`): its static SASS
+    opcode counts, and the same counts inside its longest loop (the round
+    loop of the poseidon12 kernels) with that loop's inner loops, each
+    counted once.  None when cuobjdump is not on this machine."""
+    exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(exe):
+        return None
+    dump = subprocess.run([exe, "-sass", lib_path], capture_output=True,
+                          text=True, timeout=300).stdout
+    funcs, name = {}, None
+    for line in dump.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            funcs[name] = []
+            continue
+        m = SASS_LINE.search(line)
+        if name is not None and m:
+            funcs[name].append((int(m.group(1), 16), m.group(2),
+                                m.group(3)))
+    out = {}
+    for name, ins in funcs.items():
+        loops = []                          # (start, end) of backward BRA
+        for addr, op, args in ins:
+            t = re.search(r"0x([0-9a-f]+)", args) if op == "BRA" else None
+            if t and int(t.group(1), 16) < addr:
+                loops.append((int(t.group(1), 16), addr))
+        total = collections.Counter(op for _, op, _ in ins)
+        entry = {"total": len(ins), "imad": {k: v for k, v in total.items()
+                                             if k.startswith("IMAD")}}
+        if loops:
+            lo, hi = max(loops, key=lambda l: l[1] - l[0])
+            body = collections.Counter(op for a, op, _ in ins
+                                       if lo <= a <= hi)
+            entry["loop"] = {
+                "instructions": sum(body.values()),
+                "imad": {k: v for k, v in body.items()
+                         if k.startswith("IMAD")},
+                "other_top": dict(collections.Counter(
+                    {k: v for k, v in body.items()
+                     if not k.startswith("IMAD")}).most_common(8)),
+                "inner_loops": [(b - a) // 16 + 1 for a, b in loops
+                                if lo <= a and b <= hi and (a, b) != (lo, hi)]}
+        out[name] = entry
+    return out
+
+
 def phase_build():
     """Both kernels are compiled at once (one nvcc each)."""
     t0 = time.time()
@@ -213,34 +277,78 @@ def phase_build():
           "digit_dot_s": round(dd.build_info["seconds"] or 0, 3),
           "native_s": round(t_native, 3),
           "ptxas": {"poseidon12":
-                    ptxas_lines(poseidon_cuda.build_info["log"])[-4:],
-                    "digit_dot": ptxas_lines(dd.build_info["log"])}})
+                    ptxas_lines(poseidon_cuda.build_info["log"]),
+                    "digit_dot": ptxas_lines(dd.build_info["log"])},
+          "poseidon12_dynamic_smem_bytes": {
+              k: f(ROUNDS) for k, f in P12_DYNAMIC_SMEM.items()},
+          "poseidon12_sass": sass_counts(poseidon_cuda.LIB_PATH)})
+
+
+# the C entry points of csrc/poseidon12.cu: the wrapper's kernel (12
+# threads per state) and the yardstick (the port's first kernel, one
+# thread per state)
+P12_ENTRIES = {"teams": "poseidon12_launch",
+               "one_thread": "poseidon12_launch_one_thread"}
+TEAM_STATES_PER_BLOCK = 10       # csrc/poseidon12.cu: ZKL_STATES
+ONE_THREAD_BLOCK = 128           # csrc/poseidon12.cu: ZKL_BLOCK
+# each kernel's dynamic shared memory per block (ptxas reports only static
+# shared memory), as its launcher in csrc/poseidon12.cu sizes it
+P12_DYNAMIC_SMEM = {
+    "poseidon12_team_kernel": lambda r: (
+        12 * 13 + r * 12 + 2 * TEAM_STATES_PER_BLOCK * 12) * 16,
+    "poseidon12_kernel": lambda r: (
+        (144 + r * 12) * 2 + 24 * ONE_THREAD_BLOCK) * 8}
+
+
+def raw_permute(x, entry: str, rounds: int = ROUNDS):
+    """One launch through the C entry point `entry`, outside the wrapper
+    and its launch count."""
+    mds, rc, _ = poseidon_cuda.suite_tensors(pos.HASHER_SUITE_ID, rounds,
+                                             DEV)
+    out = torch.empty_like(x)
+    err = getattr(poseidon_cuda.load(), entry)(
+        x.data_ptr(), out.data_ptr(), mds.data_ptr(), rc.data_ptr(),
+        x.shape[0], rounds, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        fail(f"{entry} at batch {x.shape[0]}: CUDA error {err}")
+    return out
 
 
 def phase_kernels():
-    """poseidon12 vs permute12_plain on the card at fixed batches, edge
-    states included: exact equality."""
+    """poseidon12 vs permute12_plain on the card at fixed batches, the
+    all-zero and the all-(p-1) state among them from 5 states up, exact
+    equality: through the wrapper, and through each C entry point (the
+    team kernel and the yardstick).  The batches take the ragged edges of
+    both kernels' blocks (states per block, one fewer, one more)."""
     rng = np.random.default_rng(20240601)
+    edges = [s + d for s in (TEAM_STATES_PER_BLOCK, ONE_THREAD_BLOCK)
+             for d in (-1, 0, 1)]
+    batches = sorted({1, 2, 3, 4, 5, 7, 8, 9, 263, 65536, *edges})
     checked = []
     max_err = 0
     for rounds in (27, 8):
-        for b in (1, 5, 263, 65536):
+        for b in batches:
             st = rand_states(rng, b)
             if b >= 5:
                 st[0] = 0                                   # all zero
                 st[1] = np.asarray(limb.P_LIMBS, np.int32)  # p - 1 ...
                 st[1, :, 0] -= 1
             x = torch.from_numpy(st).to(DEV)
-            got = poseidon_cuda.permute12(x, pos.HASHER_SUITE_ID, rounds)
             ref = plain_sliced(x, pos.HASHER_SUITE_ID, rounds)
+            errs = {"wrapper": max_abs_diff(poseidon_cuda.permute12(
+                x, pos.HASHER_SUITE_ID, rounds), ref)}
+            for k, entry in P12_ENTRIES.items():
+                errs[k] = max_abs_diff(raw_permute(x, entry, rounds), ref)
             torch.cuda.synchronize()
-            err = max_abs_diff(got, ref)
-            max_err = max(max_err, err)
-            checked.append({"batch": b, "rounds": rounds, "equal": err == 0})
-            if err != 0:
-                fail(f"poseidon12 != plain at batch {b} rounds {rounds}")
+            max_err = max(max_err, *errs.values())
+            checked.append({"batch": b, "rounds": rounds,
+                            "equal": all(v == 0 for v in errs.values())})
+            if any(errs.values()):
+                fail(f"poseidon12 != plain at batch {b} rounds {rounds}: "
+                     f"{errs}")
     emit({"phase": "kernels", "kernel": "poseidon12", "tolerance": 0,
-          "max_abs_err": max_err, "checked": checked})
+          "max_abs_err": max_err, "entries": ["wrapper", *P12_ENTRIES],
+          "checked": checked})
     return max_err
 
 
@@ -479,48 +587,76 @@ def phase_shapes_digit_dot(shape_log):
     return max_err, timed
 
 
-def phase_shapes(batch_log):
-    """poseidon12 vs permute12_plain at every distinct batch the main path
-    gave the kernel (exact equality, 27 rounds), and both versions' times
-    at the two largest of them."""
+def p12_bound(b: int):
+    """(bound ms, by, ops ms, bytes ms) of `b` permutations of ROUNDS."""
+    ops_ms = b * ROUNDS * MAD32_PER_STATE_ROUND / INT32_MAD_PER_S * 1e3
+    bytes_ms = b * BYTES_PER_STATE / HBM_BYTES_PER_S * 1e3
+    return (max(ops_ms, bytes_ms),
+            "operations" if ops_ms >= bytes_ms else "bytes", ops_ms, bytes_ms)
+
+
+def phase_shapes(batch_log, n_segments: int):
+    """Every distinct batch the main path gave the kernel, largest first:
+    the wrapper and each entry of P12_ENTRIES vs permute12_plain (exact
+    equality, 27 rounds); the device times of the entries, taken in turns
+    (10 launches queued behind a spin kernel, so that a small batch shows
+    device time and not host time); the wrapper's time with its host
+    work; launches per segment and the bound.  The plain version is timed
+    at the two largest batches only.  Then the per-segment sums of each
+    time and of the bound (launches x ms over the batches)."""
     rng = np.random.default_rng(20240602)
     batches = sorted(set(batch_log), reverse=True)
     checked, timed = [], []
     max_err = 0
     for i, b in enumerate(batches):
         x = torch.from_numpy(rand_states(rng, b)).to(DEV)
-        got = poseidon_cuda.permute12(x, pos.HASHER_SUITE_ID, ROUNDS)
         ref = plain_sliced(x, pos.HASHER_SUITE_ID, ROUNDS)
+        errs = {"wrapper": max_abs_diff(
+            poseidon_cuda.permute12(x, pos.HASHER_SUITE_ID, ROUNDS), ref)}
+        for k, entry in P12_ENTRIES.items():
+            errs[k] = max_abs_diff(raw_permute(x, entry), ref)
         torch.cuda.synchronize()
-        err = max_abs_diff(got, ref)
-        max_err = max(max_err, err)
-        checked.append({"batch": b, "rounds": ROUNDS, "equal": err == 0,
-                        "launches_main_path": batch_log.count(b)})
-        if err != 0:
-            fail(f"poseidon12 != plain at main-path batch {b}")
-        del got, ref
+        max_err = max(max_err, *errs.values())
+        per_seg = batch_log.count(b) / n_segments
+        checked.append({"batch": b, "rounds": ROUNDS,
+                        "equal": {k: v == 0 for k, v in errs.items()},
+                        "launches_per_segment": per_seg})
+        if any(errs.values()):
+            fail(f"poseidon12 != plain at main-path batch {b}: {errs}")
+        del ref
+        ms, host_us = turns_ms({k: (lambda e=e: raw_permute(x, e))
+                                for k, e in P12_ENTRIES.items()})
+        wrapper_ms = cuda_ms(lambda: poseidon_cuda.permute12(
+            x, pos.HASHER_SUITE_ID, ROUNDS))
+        bound_ms, by, ops_ms, bytes_ms = p12_bound(b)
+        row = {"batch": b, "rounds": ROUNDS,
+               "launches_per_segment": per_seg,
+               "ms": ms["teams"], "earlier_ms": ms["one_thread"],
+               "host_us": host_us,
+               "wrapper_ms": wrapper_ms, "bound_ms": bound_ms,
+               "bound_by": by, "bound_ops_ms": ops_ms,
+               "bound_bytes_ms": bytes_ms,
+               "share_of_bound": bound_ms / ms["teams"],
+               "perms_per_s": b / ms["teams"] * 1e3}
         if i < 2:
-            ms = cuda_ms(lambda: poseidon_cuda.permute12(
-                x, pos.HASHER_SUITE_ID, ROUNDS))
-            # the comparison above was the plain version's warm-up
-            plain_ms = cuda_ms(lambda: plain_sliced(
+            row["plain_ms"] = cuda_ms(lambda: plain_sliced(
                 x, pos.HASHER_SUITE_ID, ROUNDS), reps=2, warm=0)
-            ops_ms = (b * ROUNDS * MAD32_PER_STATE_ROUND
-                      / INT32_MAD_PER_S * 1e3)
-            bytes_ms = b * BYTES_PER_STATE / HBM_BYTES_PER_S * 1e3
-            timed.append({"batch": b, "rounds": ROUNDS, "ms": ms,
-                          "plain_ms": plain_ms,
-                          "bound_ms": max(ops_ms, bytes_ms),
-                          "bound_by": ("operations" if ops_ms >= bytes_ms
-                                       else "bytes"),
-                          "bound_ops_ms": ops_ms, "bound_bytes_ms": bytes_ms,
-                          "perms_per_s": b / ms * 1e3})
+        timed.append(row)
         del x
         torch.cuda.empty_cache()
+    per_segment = {k: sum(r["launches_per_segment"] * r[k] for r in timed)
+                   for k in ("ms", "earlier_ms", "wrapper_ms", "bound_ms")}
     emit({"phase": "shapes", "kernel": "poseidon12", "tolerance": 0,
           "max_abs_err": max_err, "states_main_path": sum(batch_log),
-          "checked": checked, "timed": timed})
-    return max_err, timed
+          "timing": "ms (team kernel), earlier_ms (yardstick): device "
+          "time, 10 launches "
+          "queued behind a spin kernel, median of 4 rounds in turns; "
+          "host_us: the host's time to issue one of those calls; "
+          "wrapper_ms: one permute12 call between two events, host work "
+          "included, median of 5; plain_ms: median of 2",
+          "per_segment_ms": per_segment, "checked": checked,
+          "timed": timed})
+    return max_err, timed, per_segment
 
 
 def phase_commit():
@@ -713,9 +849,10 @@ def phase_prove_both(n_segments, smi_line: str):
     return new
 
 
-def kernels_summary(run, errs, timed) -> dict:
+def kernels_summary(run, errs, timed, p12_sums) -> dict:
     """The `{"kernels": [...]}` line: per kernel the launches of the
-    default run and the times at its costliest main-path shape."""
+    default run and the times at its costliest main-path shape
+    (poseidon12: also the per-segment sums over all its batches)."""
     n = len(run["steps"])
     top_p, top_d = timed["poseidon12"][0], timed["digit_dot"][0]
     return {"kernels": [
@@ -727,8 +864,9 @@ def kernels_summary(run, errs, timed) -> dict:
          "max_abs_err": errs["poseidon12"],
          "ms": top_p["ms"], "plain_ms": top_p["plain_ms"],
          "bound_ms": top_p["bound_ms"], "bound_by": top_p["bound_by"],
-         "library_ms": None, "batch": top_p["batch"],
-         "rounds": top_p["rounds"],
+         "library_ms": None, "earlier_ms": top_p["earlier_ms"],
+         "wrapper_ms": top_p["wrapper_ms"], "batch": top_p["batch"],
+         "rounds": top_p["rounds"], "per_segment_ms": p12_sums,
          "other_shapes": timed["poseidon12"][1:]},
         {"name": "digit_dot", "route": "cuda",
          "source": "zklisp_tpu_torch/csrc/digit_dot.cu",
@@ -767,11 +905,12 @@ def main() -> None:
     if "prove" in phases:
         run = phase_prove_both(args.segments, smi_line)
     if "shapes" in phases:
-        err, timed["poseidon12"] = phase_shapes(run["batch_log"])
+        err, timed["poseidon12"], p12_sums = phase_shapes(
+            run["batch_log"], len(run["steps"]))
         errs["poseidon12"] = max(errs["poseidon12"], err)
         err, timed["digit_dot"] = phase_shapes_digit_dot(run["shape_log"])
         errs["digit_dot"] = max(errs["digit_dot"], err)
-        emit(kernels_summary(run, errs, timed))
+        emit(kernels_summary(run, errs, timed, p12_sums))
     emit({"phase": "total", "seconds": round(time.time() - T_START, 1),
           "phases": phases})
     print(smi_line, flush=True)

@@ -10,9 +10,10 @@ more under `torch.profiler` (CPU + CUDA activities), and prints one JSON
 object: the card, the profiled segment's wall seconds and per-phase
 seconds (both WITH the profiler's overhead, which is large for a
 launch-bound program), the device-busy seconds (sum of kernel times), the
-number of kernel launches, the top kernels by device time, and the
-device's idle share taken against the wall time of the last warm-up
-segment (which ran without the profiler).  A second line gives that
+number of kernel launches, the device time and launches of each
+hand-written kernel (poseidon12, digit_dot), the top kernels by device
+time, and the device's idle share taken against the wall time of the
+last warm-up segment (which ran without the profiler).  A second line gives that
 segment's per-phase seconds.  `--earlier` sets the four kill switches
 (radix-2 NTT, limb-dot DEEP, stack executor, per-layer FRI loop).  Needs
 one CUDA card.
@@ -107,6 +108,12 @@ def main() -> None:
             if ev.device_type == torch.autograd.DeviceType.CUDA]
     kern = sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])
     busy_s = sum(r[1] for r in kern) / 1e6
+    # the hand-written kernels, by the names their sources give them
+    # (poseidon12_team_kernel, digit_dot_tc_kernel<...>, ...)
+    ported = {name: {"device_ms": round(sum(r[1] for r in kern
+                                            if name in r[0]) / 1e3, 4),
+                     "count": int(sum(r[2] for r in kern if name in r[0]))}
+              for name in ("poseidon12", "digit_dot")}
     warm_wall = state["warm_wall"]
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -120,6 +127,7 @@ def main() -> None:
         "device_idle_share_of_unprofiled_wall":
             round(1.0 - busy_s / warm_wall, 4),
         "kernel_launches": int(sum(r[2] for r in kern)),
+        "ported_kernels": ported,
         "per_phase_s_profiled": {k: round(v, 4) for k, v
                                  in state["prof_phases"].items()},
         "top_kernels": [{"name": k[:90], "device_ms": round(us / 1e3, 3),

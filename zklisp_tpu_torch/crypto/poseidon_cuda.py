@@ -4,10 +4,11 @@ its plain PyTorch version and its launch counter.
 Replaces the Pallas kernel of the JAX package
 (zklisp_tpu/crypto/poseidon_pallas.py: `_permute_fn` and its inner
 `kernel`, VPU and MXU-MDS lowerings alike — one function, one output).
-The kernel is csrc/poseidon12.cu: one thread per state, lanes in 64-bit
-register pairs, a single reduction per MDS row.  It is bound by integer
-multiplies, not bytes (768 B moved per state against 168 field
-multiplies per round); see the note at the top of the source.
+The kernel is csrc/poseidon12.cu: a team of 12 threads carries one state
+(thread k holds lane k and computes MDS row k), lanes are four 32-bit words,
+products and sums are PTX carry chains, each MDS row is reduced once.  It
+is bound by integer multiply-adds at large batches and by one state's
+serial rounds at small ones; see the note at the top of the source.
 
 `permute12` takes the plain version only for a CPU tensor.  For a CUDA
 tensor it launches the kernel or raises: there is no fallback.
@@ -30,15 +31,18 @@ from . import poseidon_host as _ph
 
 _KERNEL = KernelLibrary("poseidon12")
 SOURCE = _KERNEL.source
+LIB_PATH = _KERNEL.lib_path
 build_info = _KERNEL.build_info
 
 
 def _declare(lib) -> None:
-    lib.poseidon12_launch.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-        ctypes.c_void_p]
-    lib.poseidon12_launch.restype = ctypes.c_int
+    # poseidon12_launch: the team kernel (the wrapper's); the other entry is
+    # the port's first kernel, kept as a yardstick for chip_smoke.py
+    for fn in (lib.poseidon12_launch, lib.poseidon12_launch_one_thread):
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                       ctypes.c_void_p]
+        fn.restype = ctypes.c_int
 
 
 def load():
