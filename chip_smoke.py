@@ -6,17 +6,19 @@
 Builds the port's CUDA kernels (poseidon12, digit_dot) from the sources in
 this checkout, holds each against its plain PyTorch version on the card,
 and drives the port's main path — compile the scaled rollup-bench program,
-build the 2^16-row trace, prove its 4096-row segments (blowup 16, 64
-queries, grind 16, 27 hasher rounds) with `prove_program`, verify every
-StepProof with `verify_step` — in two configurations:
+build the 2^16-row trace, prove its 16 segments of 4096 rows (blowup 16, 64
+queries, grind 16, 27 hasher rounds) and aggregate them into one ZKLRC1
+artifact with `agg.prove_chain`, verify every StepProof with `verify_step`
+and the artifact with `verify_agg` — then the command line:
 
   default  four-step matrix NTT, matrix DEEP, leveled constraint executor,
            fused FRI chain (what `prove_program` does with no switch set);
-           all 16 segments
+           all 16 segments through `agg.prove_chain`
   earlier  ZKL_NO_MXU_NTT, ZKL_NO_MXU_DEEP, ZKL_CVM_LEVEL=0 and
            ZKL_NO_FUSED_FRI set: radix-2 NTT, limb-dot DEEP, stack
-           executor, per-layer FRI loop; the first 2 segments, whose
-           StepProof bytes must equal the default configuration's
+           executor, per-layer FRI loop; the first 2 segments through
+           `prove_program`, whose StepProof bytes must equal the default
+           configuration's
 
 Each phase prints one JSON object on a line of its own:
   device   card name and power limit (nvidia-smi), torch and CUDA versions
@@ -37,7 +39,20 @@ Each phase prints one JSON object on a line of its own:
            the kernel vs through the plain permutation
   prove    per configuration (one line each, headed by the card's name
            and power limit): the segments proved, per-phase seconds,
-           rows/s, peak memory, kernel launches; then the byte comparison
+           rows/s of the step proofs, peak memory, kernel launches; for
+           the default one also steps_s and agg_s of `prove_chain` with
+           the split of agg_s (child challenges, the child batch on the
+           card with its leaf and Merkle re-hash through poseidon12,
+           prove_agg), the poseidon12 launches and batches after the last
+           segment (the aggregation), the artifact's length and blake3,
+           the seconds of decode_artifact + verify_agg, and the
+           aggregation trace built again on the card and on the CPU (the
+           same tensor code with each kernel's plain version): equal,
+           with both child-batch times; then the byte comparison
+  cli      `python -m zklisp_tpu_torch.cli prove examples/hello-zk.zlisp`
+           at 128 bits (the aggregation over the quadratic extension) in a
+           subprocess on the card, `cli verify` of its artifact, and of the
+           artifact with one byte flipped (must be rejected)
   shapes   each kernel == its plain version at every shape the default
            run gave it, and the times: poseidon12 at every batch, the
            team kernel and the yardstick as device time in turns, the
@@ -52,11 +67,10 @@ non-zero exit code and no result line.  Without a CUDA card the script
 exits non-zero at once.
 
 Options (for development; the default run takes none):
-  --phases device,build,kernels,commit,prove,shapes   subset of phases
-                    (`shapes` needs `prove`)
-  --segments K      prove only the first K segments in the default
-                    configuration (default: as many of the 16 as the time
-                    budget allows, at least 2)
+  --phases device,build,kernels,commit,prove,cli,shapes
+                    subset of phases (`shapes` needs `prove`)
+  --segments K      K = 2, 4 or 8: the rollup-bench program scaled to K
+                    segments of 4096 rows (2^16 rows: 16), aggregated whole
 """
 
 from __future__ import annotations
@@ -98,9 +112,8 @@ from zklisp_tpu_torch.prove import stark_device              # noqa: E402
 DEV = torch.device("cuda")
 P = f128.P
 ROUNDS = 27
-ALL_PHASES = "device,build,kernels,commit,prove,shapes"
-BUDGET_S = 1000.0      # wall clock of the whole run; the prove phase stops
-                       # taking segments when the next would not fit
+ALL_PHASES = "device,build,kernels,commit,prove,cli,shapes"
+SEGMENTS = 16          # of 4096 rows: the 2^16-row trace
 PLAIN_SLICE = 16384    # states per call of the plain version (its int64
                        # temporaries take ~75 KB per state)
 
@@ -595,8 +608,9 @@ def p12_bound(b: int):
             "operations" if ops_ms >= bytes_ms else "bytes", ops_ms, bytes_ms)
 
 
-def phase_shapes(batch_log, n_segments: int):
-    """Every distinct batch the main path gave the kernel, largest first:
+def phase_shapes(batch_log, n_segments: int, agg_log=()):
+    """Every distinct batch the step proofs (`batch_log`) and the
+    aggregation (`agg_log`) gave the kernel, largest first:
     the wrapper and each entry of P12_ENTRIES vs permute12_plain (exact
     equality, 27 rounds); the device times of the entries, taken in turns
     (10 launches queued behind a spin kernel, so that a small batch shows
@@ -605,7 +619,7 @@ def phase_shapes(batch_log, n_segments: int):
     at the two largest batches only.  Then the per-segment sums of each
     time and of the bound (launches x ms over the batches)."""
     rng = np.random.default_rng(20240602)
-    batches = sorted(set(batch_log), reverse=True)
+    batches = sorted(set(batch_log) | set(agg_log), reverse=True)
     checked, timed = [], []
     max_err = 0
     for i, b in enumerate(batches):
@@ -620,7 +634,8 @@ def phase_shapes(batch_log, n_segments: int):
         per_seg = batch_log.count(b) / n_segments
         checked.append({"batch": b, "rounds": ROUNDS,
                         "equal": {k: v == 0 for k, v in errs.items()},
-                        "launches_per_segment": per_seg})
+                        "launches_per_segment": per_seg,
+                        "launches_aggregation": agg_log.count(b)})
         if any(errs.values()):
             fail(f"poseidon12 != plain at main-path batch {b}: {errs}")
         del ref
@@ -631,6 +646,7 @@ def phase_shapes(batch_log, n_segments: int):
         bound_ms, by, ops_ms, bytes_ms = p12_bound(b)
         row = {"batch": b, "rounds": ROUNDS,
                "launches_per_segment": per_seg,
+               "launches_aggregation": agg_log.count(b),
                "ms": ms["teams"], "earlier_ms": ms["one_thread"],
                "host_us": host_us,
                "wrapper_ms": wrapper_ms, "bound_ms": bound_ms,
@@ -648,6 +664,7 @@ def phase_shapes(batch_log, n_segments: int):
                    for k in ("ms", "earlier_ms", "wrapper_ms", "bound_ms")}
     emit({"phase": "shapes", "kernel": "poseidon12", "tolerance": 0,
           "max_abs_err": max_err, "states_main_path": sum(batch_log),
+          "states_aggregation": sum(agg_log),
           "timing": "ms (team kernel), earlier_ms (yardstick): device "
           "time, 10 launches "
           "queued behind a spin kernel, median of 4 rounds in turns; "
@@ -709,77 +726,136 @@ def phase_commit():
         fail("kernel and plain commitments differ")
 
 
-def prove_setup():
-    """Compile the scaled rollup-bench program once for both runs."""
+def prove_setup(n_segments: int):
+    """Compile the rollup-bench program scaled to `n_segments` segments
+    of 4096 rows once for both runs."""
     from zklisp_tpu_torch import workload
     from zklisp_tpu_torch.compiler import compile_entry
     from zklisp_tpu_torch.core.pi import PublicInputsBuilder
     from zklisp_tpu_torch.prove.params import ProverOptions
 
     t0 = time.time()
-    src, batch, n_ops = workload.rollup_source(65536 // 32)
+    src, batch, n_ops = workload.rollup_source(n_segments * 4096 // 32)
     program = compile_entry(src, [])
     pi = PublicInputsBuilder(program).build()
     opts = ProverOptions(min_security_bits=0, blowup=16, grind=16,
                          queries=64)
     return {"program": program, "pi": pi, "opts": opts, "batch": batch,
-            "ops": n_ops, "compile_s": time.time() - t0}
+            "ops": n_ops, "rows": n_segments * 4096,
+            "compile_s": time.time() - t0}
 
 
-def phase_prove(setup, config: str, env: dict, n_segments, smi_line: str):
-    """Drive `prove_program` in one configuration (`env` = the switches
-    to set; the four are cleared first) with every kernel's count set to
-    0 just before and read just after; verify every StepProof."""
+KERNEL_WRAPPERS = {"poseidon12": lambda: poseidon_cuda.permute12,
+                   "digit_dot": lambda: dd.digit_dot}
+
+
+def counts_zero():
+    """Set every kernel's launch count to 0 and start its shape log."""
+    for wr in KERNEL_WRAPPERS.values():
+        wr().launches = 0
+    poseidon_cuda.permute12.batch_log = []
+    dd.digit_dot.shape_log = []
+
+
+def counts_read():
+    """(launches per kernel, poseidon12 batches, digit_dot shapes) since
+    counts_zero(); stops the logs."""
+    launches = {k: wr().launches for k, wr in KERNEL_WRAPPERS.items()}
+    logs = (poseidon_cuda.permute12.batch_log, dd.digit_dot.shape_log)
+    poseidon_cuda.permute12.batch_log = None
+    dd.digit_dot.shape_log = None
+    if launches["poseidon12"] != len(logs[0]):
+        fail("poseidon12's launch count and batch log disagree")
+    if launches["digit_dot"] != len(logs[1]):
+        fail("digit_dot's launch count and shape log disagree")
+    return launches, logs[0], logs[1]
+
+
+def check_child_batch(agg, agg_pi, steps) -> dict:
+    """The aggregation trace built again (outside the counted run) with
+    the child batch on the card and on the CPU, where the same tensor
+    code runs each kernel's plain version: the traces must be equal."""
+    from zklisp_tpu_torch.agg import child_batch
+    from zklisp_tpu_torch.utils import tracing
+
+    chs = [agg._child_challenges(s) for s in steps]
+    traces, seconds = {}, {}
+    for where, dev in (("card", DEV), ("cpu", "cpu")):
+        before = tracing.summary().get("agg_child_batch", 0.0)
+        traces[where] = agg.build_agg_trace(agg_pi, steps, chs=chs,
+                                            device=dev)
+        seconds[where] = (tracing.summary().get("agg_child_batch", 0.0)
+                          - before)
+    equal = traces["card"].cols == traces["cpu"].cols
+    if not equal:
+        fail("the card's child batch and the CPU's give other traces")
+    return {"children": len(steps),
+            "groups": len(child_batch.group_children(steps, chs)),
+            "traces_equal": equal, "child_batch_s": seconds}
+
+
+def phase_prove(setup, config: str, env: dict, smi_line: str):
+    """Drive one configuration (`env` = the switches to set; the four are
+    cleared first) with every kernel's count set to 0 just before and
+    read just after: the default one through `agg.prove_chain` over all
+    segments, the earlier one through `prove_program` over the first
+    EARLIER_SEGMENTS.  Verify every StepProof (and the artifact)."""
+    from zklisp_tpu_torch.agg import aggregate as agg
+    from zklisp_tpu_torch.crypto.blake3 import blake3
     from zklisp_tpu_torch.prove import prover
     from zklisp_tpu_torch.utils import tracing
 
     for k in EARLIER_ENV:
         os.environ.pop(k, None)
     os.environ.update(env)
+    chain = not env
 
-    seg_seconds = []
+    seg_seconds, steps = [], []
+    steps_log_len = [0]       # poseidon12 launches when the last segment
+                              # returned: the later ones are aggregation
     last = [time.time()]
     first_segment = {}        # per-phase seconds of segment 0, which pays
                               # for the tables, the allocator and the build
+    real_segment = prover.prove_segment
 
-    def on_steps(_batch):
-        """Stop the serial loop when the next segment would not fit."""
+    def timed_segment(*a, **k):
+        """The serial loop's segment prover, timed (it calls this module
+        attribute once per segment)."""
+        out = real_segment(*a, **k)
         now = time.time()
         seg_seconds.append(now - last[0])
         last[0] = now
-        done = len(seg_seconds)
-        if done == 1:
+        steps.append(out[0])
+        steps_log_len[0] = len(poseidon_cuda.permute12.batch_log)
+        if len(steps) == 1:
             first_segment.update(tracing.summary())
-        if n_segments is not None:
-            return done >= n_segments
-        left = BUDGET_S - (now - T_START)
-        # keep room for the next segment, for verifying all of them and
-        # for the earlier configuration's run
-        return done >= 2 and left < 1.5 * max(seg_seconds) + 4 * done + 120
+        return out
+
+    def stop_early(_batch):
+        return len(steps) >= EARLIER_SEGMENTS
 
     tracing.reset()
     torch.cuda.reset_peak_memory_stats()
-    wrappers = {"poseidon12": poseidon_cuda.permute12,
-                "digit_dot": dd.digit_dot}
-    poseidon_cuda.permute12.batch_log = []        # the main path's shapes
-    dd.digit_dot.shape_log = []
-    for wr in wrappers.values():
-        wr.launches = 0                           # count this run only
+    prover.prove_segment = timed_segment
+    counts_zero()
     t0 = last[0] = time.time()
     try:
-        steps = prover.prove_program(setup["program"], setup["pi"],
-                                     setup["opts"], on_steps=on_steps,
-                                     device=DEV)
+        if chain:
+            proof, digest, agg_pi = agg.prove_chain(
+                setup["program"], setup["pi"], setup["opts"], device=DEV)
+        else:
+            prover.prove_program(setup["program"], setup["pi"],
+                                 setup["opts"], on_steps=stop_early,
+                                 device=DEV)
         torch.cuda.synchronize()
     finally:
+        prover.prove_segment = real_segment
         for k in env:
             os.environ.pop(k, None)
     t_prove = time.time() - t0
-    launches = {k: wr.launches for k, wr in wrappers.items()}
-    batch_log = poseidon_cuda.permute12.batch_log
-    shape_log = dd.digit_dot.shape_log
-    poseidon_cuda.permute12.batch_log = None
-    dd.digit_dot.shape_log = None
+    launches, batch_log, shape_log = counts_read()
+    batch_log, agg_log = (batch_log[:steps_log_len[0]],
+                          batch_log[steps_log_len[0]:])
     peak = torch.cuda.max_memory_allocated()
     n_total = steps[0].proof.pi.segments_total if steps else 0
 
@@ -792,53 +868,84 @@ def phase_prove(setup, config: str, env: dict, n_segments, smi_line: str):
     t_verify = time.time() - t0
     if len(steps) < 2:
         fail(f"fewer than 2 segments proved ({config})")
-    if (launches["poseidon12"] <= 0
-            or launches["poseidon12"] != len(batch_log)):
+    if launches["poseidon12"] <= 0:
         fail(f"the {config} path launched the poseidon12 kernel no time")
-    if launches["digit_dot"] != len(shape_log):
-        fail("digit_dot's launch count and shape log disagree")
+    if chain and not agg_log:
+        fail("the aggregation launched the poseidon12 kernel no time")
     if env:
         if launches["digit_dot"] != 0:
             fail("the earlier configuration launched digit_dot")
     elif launches["digit_dot"] <= 0:
         fail("the default path launched the digit_dot kernel no time")
 
+    out = {"steps": [st.to_bytes() for st in steps], "launches": launches,
+           "batch_log": batch_log, "agg_log": agg_log,
+           "shape_log": shape_log}
     rows = 4096 * len(steps)
-    per_phase = tracing.summary()
+    per_phase = {k: v for k, v in tracing.summary().items()
+                 if k not in agg.AGG_PHASES}
     n = len(steps)
+    line = {"phase": "prove", "config": config, "switches": env,
+            "program": "examples/rollup-bench.zlisp",
+            "batch": setup["batch"], "ops": setup["ops"],
+            "trace_rows": setup["rows"],
+            "segments_total": n_total, "segments_proved": n,
+            "all_segments": n == n_total, "segment_rows": 4096,
+            "width": steps[0].proof.inner.context.trace_width,
+            "blowup": 16, "queries": 64, "grind": 16,
+            "hasher_rounds": ROUNDS, "verified": True,
+            "compile_trace_s": setup["compile_s"],
+            "prove_s": t_prove, "verify_s": t_verify,
+            "rows_per_s": rows / (agg.LAST_CHAIN_TIMINGS["steps_s"]
+                                  if chain else t_prove),
+            "segment_s": seg_seconds,
+            "per_phase_s_first_segment": first_segment,
+            "per_phase_s_later_segments_mean": {
+                k: (v - first_segment.get(k, 0.0)) / (n - 1)
+                for k, v in per_phase.items()},
+            "peak_memory_bytes": peak, "launches": launches,
+            "launches_per_segment": {
+                "poseidon12": len(batch_log) / n,
+                "digit_dot": launches["digit_dot"] / n},
+            "states_per_segment": sum(batch_log) / n}
+    if chain:
+        if n != n_total or n != setup["rows"] // 4096:
+            fail(f"prove_chain proved {n} of {n_total} segments")
+        blob = agg.encode_artifact(proof, agg_pi)
+        t0 = time.time()
+        proof2, pi2 = agg.decode_artifact(blob)
+        try:
+            agg.verify_agg(proof2, pi2)
+        except Exception as e:                    # noqa: BLE001
+            fail(f"verify_agg rejected the artifact: {e!r}")
+        t_verify_agg = time.time() - t0
+        timings = dict(agg.LAST_CHAIN_TIMINGS)
+        line.update({
+            "chain": timings,
+            "aggregation_poseidon12": {
+                "launches": len(agg_log), "states": sum(agg_log),
+                "batches": dict(collections.Counter(agg_log))},
+            "child_batch_check": check_child_batch(agg, agg_pi, steps),
+            "artifact_bytes": len(blob),
+            "artifact_blake3": blake3(blob).hex(),
+            "agg_trace_rows": proof.context.trace_len,
+            "agg_queries": proof.context.options.num_queries,
+            "agg_field_extension": proof.context.options.field_extension,
+            "verify_agg_s": t_verify_agg,
+            "seconds_to_verified_artifact": t_prove + t_verify_agg,
+            "rows_per_s_to_verified_artifact":
+                rows / (t_prove + t_verify_agg)})
     print(smi_line, flush=True)
-    emit({"phase": "prove", "config": config, "switches": env,
-          "program": "examples/rollup-bench.zlisp",
-          "batch": setup["batch"], "ops": setup["ops"],
-          "trace_rows": 65536,
-          "segments_total": n_total, "segments_proved": n,
-          "all_segments": n == n_total, "segment_rows": 4096,
-          "width": steps[0].proof.inner.context.trace_width,
-          "blowup": 16, "queries": 64, "grind": 16, "hasher_rounds": ROUNDS,
-          "verified": True,
-          "compile_trace_s": round(setup["compile_s"], 3),
-          "prove_s": round(t_prove, 3), "verify_s": round(t_verify, 3),
-          "rows_per_s": rows / t_prove,
-          "segment_s": [round(s, 3) for s in seg_seconds],
-          "per_phase_s_first_segment": {k: round(v, 4) for k, v
-                                        in first_segment.items()},
-          "per_phase_s_later_segments_mean": {
-              k: round((v - first_segment.get(k, 0.0)) / (n - 1), 4)
-              for k, v in per_phase.items()},
-          "peak_memory_bytes": peak, "launches": launches,
-          "launches_per_segment": {k: v / n for k, v in launches.items()},
-          "states_per_segment": sum(batch_log) / n})
-    return {"steps": [st.to_bytes() for st in steps], "launches": launches,
-            "batch_log": batch_log, "shape_log": shape_log}
+    emit(line)
+    return out
 
 
-def phase_prove_both(n_segments, smi_line: str):
-    """The default configuration, then the earlier one on the first
-    segments; their StepProof bytes must be equal."""
-    setup = prove_setup()
-    new = phase_prove(setup, "default", {}, n_segments, smi_line)
-    old = phase_prove(setup, "earlier", dict(EARLIER_ENV),
-                      EARLIER_SEGMENTS, smi_line)
+def phase_prove_both(n_segments: int, smi_line: str):
+    """The default configuration through prove_chain, then the earlier
+    one on the first segments; their StepProof bytes must be equal."""
+    setup = prove_setup(n_segments)
+    new = phase_prove(setup, "default", {}, smi_line)
+    old = phase_prove(setup, "earlier", dict(EARLIER_ENV), smi_line)
     both = min(len(new["steps"]), len(old["steps"]))
     equal = [new["steps"][i] == old["steps"][i] for i in range(both)]
     emit({"phase": "prove", "compare": "StepProof bytes, default vs "
@@ -847,6 +954,54 @@ def phase_prove_both(n_segments, smi_line: str):
     if both < 2 or not all(equal):
         fail("the two configurations' StepProof bytes differ")
     return new
+
+
+def phase_cli(smi_line: str):
+    """The command line in a subprocess on the card: prove hello-zk at 128
+    bits (the aggregation proof over the quadratic extension), verify the
+    artifact, then verify it with one byte flipped (must fail)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, "zklisp_tpu_torch", "build", "cli_smoke")
+    os.makedirs(work, exist_ok=True)
+    art = os.path.join(work, "hello.bin")
+    bad = os.path.join(work, "hello_flipped.bin")
+    prog = os.path.join(root, "examples", "hello-zk.zlisp")
+    args = ["--arg", "u64:2", "--arg", "u64:5"]
+    opts = ["--queries", "33", "--blowup", "16", "--grind", "0",
+            "--security-bits", "128", "--json"]
+
+    def cli(cmd, *extra):
+        t0 = time.time()
+        res = subprocess.run(
+            [sys.executable, "-m", "zklisp_tpu_torch.cli", cmd, *extra,
+             *opts], cwd=root, capture_output=True, text=True, timeout=900)
+        lines = res.stdout.strip().splitlines()
+        try:
+            out = json.loads(lines[-1]) if lines else {}
+        except ValueError:
+            out = {}
+        return res.returncode, out, time.time() - t0, res.stderr[-2000:]
+
+    rc, proved, t_prove, err = cli("prove", prog, *args, "--secret",
+                                   "u64:3", "--out", art)
+    if rc != 0 or not proved.get("ok"):
+        fail(f"cli prove failed (rc {rc}): {proved} {err}")
+    rc, verified, t_verify, err = cli("verify", art, prog, *args)
+    if rc != 0 or verified.get("ok") is not True:
+        fail(f"cli verify rejected its own artifact (rc {rc}): "
+             f"{verified} {err}")
+    blob = bytearray(open(art, "rb").read())
+    blob[len(blob) - 40] ^= 1
+    with open(bad, "wb") as f:
+        f.write(bytes(blob))
+    rc_bad, flipped, _, _ = cli("verify", bad, prog, *args)
+    print(smi_line, flush=True)
+    emit({"phase": "cli", "program": "examples/hello-zk.zlisp",
+          "options": opts[:-1], "prove": proved, "prove_s": t_prove,
+          "verify": verified, "verify_s": t_verify,
+          "flipped_byte_verify": flipped, "flipped_byte_rc": rc_bad})
+    if rc_bad == 0 or flipped.get("ok") is not False:
+        fail("cli verify accepted an artifact with a flipped byte")
 
 
 def kernels_summary(run, errs, timed, p12_sums) -> dict:
@@ -860,7 +1015,8 @@ def kernels_summary(run, errs, timed, p12_sums) -> dict:
          "source": "zklisp_tpu_torch/csrc/poseidon12.cu",
          "replaces": "zklisp_tpu/crypto/poseidon_pallas.py:351",
          "launches": run["launches"]["poseidon12"],
-         "launches_per_segment": run["launches"]["poseidon12"] / n,
+         "launches_per_segment": len(run["batch_log"]) / n,
+         "launches_aggregation": len(run["agg_log"]),
          "max_abs_err": errs["poseidon12"],
          "ms": top_p["ms"], "plain_ms": top_p["plain_ms"],
          "bound_ms": top_p["bound_ms"], "bound_by": top_p["bound_by"],
@@ -886,7 +1042,8 @@ def kernels_summary(run, errs, timed, p12_sums) -> dict:
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--phases", default=ALL_PHASES)
-    ap.add_argument("--segments", type=int, default=None)
+    ap.add_argument("--segments", type=int, default=SEGMENTS,
+                    choices=[2, 4, 8, 16])
     args = ap.parse_args()
     phases = args.phases.split(",")
     if "shapes" in phases and "prove" not in phases:
@@ -904,9 +1061,11 @@ def main() -> None:
         phase_commit()
     if "prove" in phases:
         run = phase_prove_both(args.segments, smi_line)
+    if "cli" in phases:
+        phase_cli(smi_line)
     if "shapes" in phases:
         err, timed["poseidon12"], p12_sums = phase_shapes(
-            run["batch_log"], len(run["steps"]))
+            run["batch_log"], len(run["steps"]), run["agg_log"])
         errs["poseidon12"] = max(errs["poseidon12"], err)
         err, timed["digit_dot"] = phase_shapes_digit_dot(run["shape_log"])
         errs["digit_dot"] = max(errs["digit_dot"], err)

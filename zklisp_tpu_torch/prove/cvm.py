@@ -267,7 +267,8 @@ SRC_SLOT, SRC_CUR, SRC_NXT, SRC_PER, SRC_PLAST, SRC_CONST = range(6)
 _BIN_KINDS = ("add", "sub", "mul")
 
 LEVEL_MAX_ROWS = 4096            # rows per chunk, at most
-LEVEL_TABLE_BYTES = 192 << 20    # operand-table budget per chunk
+LEVEL_TABLE_BYTES = 192 << 20    # operand-table budget per chunk, unless
+                                 # ZKL_CVM_TABLE_BYTES sets another
 
 
 @dataclass
@@ -503,13 +504,29 @@ def _level_tensors(lp: LevelProgram, w: int, n_perp: int, device):
     return out
 
 
+def level_chunk_rows(N: int, rows_total: int, period: int) -> int:
+    """Rows per chunk of the leveled executor: the largest power of two
+    up to LEVEL_MAX_ROWS whose (rows_total, C, 8) int32 operand table
+    fits the budget (ZKL_CVM_TABLE_BYTES, read at call time; default
+    LEVEL_TABLE_BYTES), but at least 1024 rows and one whole period."""
+    budget = int(os.environ.get("ZKL_CVM_TABLE_BYTES",
+                                str(LEVEL_TABLE_BYTES)))
+    C = min(N, LEVEL_MAX_ROWS)
+    while C > 1024 and rows_total * C * limb.NLIMB * 4 > budget:
+        C //= 2
+    C = max(C, period)               # a chunk holds whole periods
+    assert N % C == 0 and C % period == 0
+    return C
+
+
 def execute_leveled(lp: LevelProgram, lde, per_p, p_last, alphas,
                     blowup: int):
     """Leveled executor: same contract as `execute`.
 
     Rows are processed in chunks sized so that the unified operand table
     (cur | nxt | periodic | p_last | consts | one slot per binop, each a
-    (C, 8) row block) stays under LEVEL_TABLE_BYTES whatever N is.  The
+    (C, 8) row block) stays under the table budget whatever N is
+    (`level_chunk_rows`).  The budget moves no proof byte.  The
     table is allocated once; every slot is written (by its level's
     batched op, at its static position) before a later level gathers it,
     so chunks need no clearing."""
@@ -523,11 +540,7 @@ def execute_leveled(lp: LevelProgram, lde, per_p, p_last, alphas,
     n_fixed = 2 * w + n_perp + 1 + n_const
     rows_total = n_fixed + max(lp.n_slots, 1)
 
-    C = min(N, LEVEL_MAX_ROWS)
-    while C > 1024 and rows_total * C * tl.NLIMB * 4 > LEVEL_TABLE_BYTES:
-        C //= 2
-    C = max(C, period)               # a chunk holds whole periods
-    assert N % C == 0 and C % period == 0
+    C = level_chunk_rows(N, rows_total, period)
 
     U = torch.empty((rows_total, C, tl.NLIMB), dtype=tl.DTYPE, device=dev)
     o_per, o_plast, o_const = 2 * w, 2 * w + n_perp, 2 * w + n_perp + 1

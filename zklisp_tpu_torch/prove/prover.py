@@ -8,12 +8,16 @@ trace, compute boundary state, prove with the device segment prover
 verify_step: verify one StepProof against its recorded public inputs
 with the host verifier (stark.verify_trace).
 
-Every segment keeps the program-wide feature mask and the FULL trace's
-usage mask (uniform-segment mode), so all segments share one AIR
-structure and one set of cached tables.
+By default every segment keeps the program-wide feature mask and the FULL
+trace's usage mask (uniform-segment mode), so all segments share one AIR
+structure and one set of cached tables.  ZKL_UNIFORM_SEGMENTS=0 (read at
+call time) gives each segment its own feature mask, column layout and
+usage mask instead, as the JAX package's host path does.  ZKL_PREFLIGHT=
+console|json runs the row-wise constraint check before each segment is
+proved.
 
-Not here yet: aggregation (prove_chain), the wave prover, streamed
-traces, upload prefetch and parallel segment proving.
+Not here yet: the wave prover, streamed traces, upload prefetch and
+parallel segment proving.
 """
 
 from __future__ import annotations
@@ -31,7 +35,7 @@ from ..core import pi as pi_mod
 from ..device import resolve
 from ..field import f128
 from ..trace import build as tb
-from ..trace.layout import Columns, LayoutConfig
+from ..trace.layout import Columns, LayoutConfig, STEPS_PER_LEVEL_P2
 from ..utils.tracing import phase
 from . import planner, stark
 from .formats import StepMeta, StepProof, Zl1Proof
@@ -119,9 +123,22 @@ def prove_program(program: Program, pub_inputs: pi_mod.PublicInputs,
     return steps
 
 
-def uniform_usage_for(full_trace) -> Tuple[int, int]:
+def _uniform_segments() -> bool:
+    """Uniform-segment mode (default on; the port is a device path):
+    every segment keeps the program-wide feature mask and the FULL
+    trace's usage mask, so all segments share one AIR structure and one
+    set of cached tables.  Opt out: ZKL_UNIFORM_SEGMENTS=0, which trims
+    each segment to its own features as the JAX package's host path
+    does."""
+    return os.environ.get("ZKL_UNIFORM_SEGMENTS", "") != "0"
+
+
+def uniform_usage_for(full_trace) -> Optional[Tuple[int, int]]:
     """(vm_usage_mask, ram_delta_clk_bits) of the FULL trace, cached on
-    the trace object (uniform-segment mode)."""
+    the trace object; None when uniform mode is off (each segment's
+    usage is then scanned from its own rows)."""
+    if not _uniform_segments():
+        return None
     if getattr(full_trace, "_uniform_usage", None) is None:
         full_trace._uniform_usage = compute_vm_usage_mask(
             full_trace, Columns.baseline())
@@ -130,9 +147,18 @@ def uniform_usage_for(full_trace) -> Tuple[int, int]:
 
 def _segment_layout(program: Program, pub_inputs: pi_mod.PublicInputs,
                     seg: tb.Segment):
-    """Effective feature mask + column layout for one segment: in
-    uniform-segment mode, the program-wide feature mask."""
-    eff_mask = pub_inputs.feature_mask
+    """Effective feature mask + column layout for one segment: the
+    program-wide feature mask in uniform-segment mode, else the
+    segment's own mask where it differs."""
+    eff_mask = base_mask = pub_inputs.feature_mask
+    if not _uniform_segments():
+        seg_features = planner.compute_segment_features_for_levels(
+            program, seg.r_start // STEPS_PER_LEVEL_P2,
+            seg.r_end // STEPS_PER_LEVEL_P2)
+        seg_mask = planner.compute_segment_feature_mask(pub_inputs,
+                                                        seg_features)
+        if seg_mask != 0 and seg_mask != base_mask:
+            eff_mask = seg_mask
     fmap_vm = bool(eff_mask & pi_mod.FM_VM)
     rom_enabled = any(pub_inputs.program_id)
 
@@ -186,6 +212,15 @@ def prove_segment(suite_id: bytes, rom_acc: Tuple[int, int, int],
             trace, usage_override=uniform_usage_for(full_trace))
         pi_len = len(air_pi.to_elements())
         air = ZkLispAir(trace.width, trace.length, air_pi)
+
+    # ZKL_PREFLIGHT (prove.rs:128-136): the row-wise constraint check
+    # with the exact prover AIR before proving
+    pf_mode = os.environ.get("ZKL_PREFLIGHT", "off").lower()
+    if pf_mode in ("console", "json"):
+        from ..air.preflight import run_preflight
+        violations = run_preflight(air, trace)
+        if violations:
+            raise ProveError(f"preflight violations: {violations[:3]}")
 
     meta = StepMeta.from_env(trace.length, wf_opts, min_bits, pi_len)
     # segment limbs as a numpy slice of the cached full-trace u16 array

@@ -1,9 +1,12 @@
-"""STARK proof containers, domain helpers and the host verifier.
+"""STARK proof containers, the host prover and the host verifier.
 
 The host half of the STARK core: the proof dataclasses, boundary
 assertion grouping, LDE-domain tables shared with the device prover
-(prove/stark_device.py), Fiat-Shamir replay and `verify_trace`.  All of
-it runs on the host over Python ints and numpy limb arrays.
+(prove/stark_device.py), the host prover `prove_trace(..., xp=numpy)`
+(trace LDE, constraint composition, DEEP composition, FRI, grinding and
+query openings as batched numpy limb arithmetic — the aggregation proof
+is made with it), Fiat-Shamir replay and `verify_trace`.
+Quadratic-extension proofs (field_extension == 2) go to stark_ext.
 
 Protocol structure follows winterfell as documented by the reference's
 Fiat-Shamir replay (src/agg/fs.rs — treated as the spec) and its
@@ -23,25 +26,28 @@ depth, and a Horner-evaluated remainder polynomial (highest-degree-first).
 
 Deliberate deviation from winterfell (documented in PARITY.md): boundary
 assertions are batched as *periodic groups* (one coefficient per
-(column, value, stride) class) instead of one coefficient per assertion.
-
-Quadratic-extension proofs (field_extension == 2) raise
-NotImplementedError until stark_ext is ported.
+(column, value, stride) class) instead of one coefficient per assertion —
+identical soundness structure, ~200x fewer boundary constraint groups for
+the schedule assertions.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
-from ..air.zk_air import ZkLispAir
+import numpy as _np
+
+from ..air.zk_air import AirPublicInputs, ZkLispAir
 from ..crypto import poseidon as pos
 from ..field import f128
+from ..field import limb_host as limb
 from ..field import ntt_host as ntt
 from ..field.felt import Felt, FVec
 from .coin import RandomCoin
 from . import multiproof
-from .commit import hash_row_host, verify_opening
+from .commit import (MerkleCommitment, commit_rows, hash_row_host,
+                     verify_opening)
 from .params import ProofOptions
 
 P = f128.P
@@ -184,6 +190,9 @@ def group_assertions(assertions: Sequence[Tuple[int, int, int]],
 # domain helpers
 # ---------------------------------------------------------------------------
 
+def _roll(a, shift, xp):
+    return xp.roll(a, shift, axis=0)
+
 
 def lde_points_host(n: int, blowup: int) -> List[int]:
     N = n * blowup
@@ -221,6 +230,58 @@ def transition_zerofier_inv_lde(n: int, blowup: int, xp) -> FVec:
     return (x_vec - Felt(g_last)) * inv_xn
 
 
+def group_divisor_inv_lde(groups: Sequence[AssertionGroup], n: int,
+                          blowup: int, xp) -> List[FVec]:
+    """1/divisor over the LDE domain for each assertion group."""
+    N = n * blowup
+    wN = f128.get_root_of_unity(N)
+    g = f128.get_root_of_unity(n)
+    out_map = {}
+    singles = [grp for grp in groups if grp.is_single]
+
+    # batch all single divisors together, deduped by step (per-assertion
+    # mode produces many groups sharing a step; the inverse table is
+    # computed once per unique step and the FVec shared)
+    if singles:
+        xs = lde_points_host(n, blowup)
+        steps = sorted({grp.step for grp in singles})
+        flat = []
+        for s in steps:
+            gs = pow(g, s, P)
+            flat.extend((x - gs) % P for x in xs)
+        inv_flat = f128.batch_inv(flat)
+        by_step = {}
+        for i, s in enumerate(steps):
+            by_step[s] = FVec.from_ints(inv_flat[i * N:(i + 1) * N], xp)
+        for grp in singles:
+            out_map[id(grp)] = by_step[grp.step]
+
+    k = n // CYCLE
+    period = CYCLE * blowup
+    # x^k over one period of the LDE index
+    xk_vals = []
+    cur = pow(OFFSET, k, P)
+    wk = pow(wN, k, P)
+    for _ in range(period):
+        xk_vals.append(cur)
+        cur = f128.mul(cur, wk)
+
+    out = []
+    for grp in groups:
+        if grp.is_single:
+            out.append(out_map[id(grp)])
+            continue
+        roots = [pow(g, o * k, P) for o in grp.offsets]
+        vals = []
+        for xv in xk_vals:
+            prod = 1
+            for r in roots:
+                prod = prod * ((xv - r) % P) % P
+            vals.append(prod)
+        out.append(_tile_inverse_period(vals, N, xp))
+    return out
+
+
 def group_divisor_at(grp: AssertionGroup, n: int, z: int) -> int:
     g = f128.get_root_of_unity(n)
     if grp.is_single:
@@ -237,10 +298,227 @@ def group_divisor_at(grp: AssertionGroup, n: int, z: int) -> int:
 # device polynomial evaluation at a point
 # ---------------------------------------------------------------------------
 
+def eval_polys_at(polys, z: int, xp) -> List[int]:
+    """polys: (C, n, 8) coefficient limb array -> [P_c(z)] as ints."""
+    n = polys.shape[1]
+    zp = []
+    cur = 1
+    for _ in range(n):
+        zp.append(cur)
+        cur = f128.mul(cur, z)
+    zpow = xp.asarray(limb.from_ints(zp))          # (n, 8)
+    terms = limb.mul(polys, zpow[None], xp)        # (C, n, 8)
+    acc = limb.sum_mod(terms, 1, xp)
+    return [int(v) for v in limb.to_ints(_np.asarray(acc))]
+
+
+def vec_inv(v: FVec) -> FVec:
+    return FVec(limb.inv(v.a, v.xp), v.xp)
+
 
 # ---------------------------------------------------------------------------
 # prover
 # ---------------------------------------------------------------------------
+
+def prove_trace(trace, air: ZkLispAir, air_pi: AirPublicInputs,
+                options: ProofOptions, xp=_np, device=None) -> StarkProof:
+    """The host prover (numpy limb arithmetic).  Only the proof-of-work
+    scan runs on `device` (`RandomCoin.grind`; default: the CUDA card)."""
+    n = trace.length
+    w = trace.width
+    blowup = options.blowup
+    N = n * blowup
+    context = ProofContext(w, n, options)
+
+    # 1. trace polynomials + LDE
+    cols_limbs = xp.asarray(trace.to_limbs())       # (w, n, 8)
+    pows = ntt.powers_table(N.bit_length() - 1, xp)
+    trace_polys = xp.stack([ntt.intt(cols_limbs[c], xp)
+                            for c in range(w)])     # (w, n, 8)
+    trace_lde = xp.stack([
+        ntt.coset_evaluate(trace_polys[c], blowup, xp, pows=pows)
+        for c in range(w)])                         # (w, N, 8)
+
+    # 2. commit to trace rows
+    ps_main = options.partition_size(w)
+    rows = xp.transpose(trace_lde, (1, 0, 2))
+    trace_comm = commit_rows(rows, ps_main, xp)
+
+    coin = RandomCoin(context.to_elements() + air_pi.to_elements())
+    coin.reseed(trace_comm.root)
+
+    # 3. constraint composition coefficients
+    n_trans = air.num_transition_constraints()
+    assertions = air.get_assertions()
+    groups = group_assertions(assertions, n, options.per_assertion)
+    alphas = coin.draw_many(n_trans)
+    betas = coin.draw_many(len(groups))
+
+    # 4. composition evaluations over the LDE domain
+    periodic = air.periodic_lde(blowup, xp)
+    cur = [FVec(trace_lde[c], xp) for c in range(w)]
+    nxt = [FVec(_roll(trace_lde[c], -blowup, xp), xp) for c in range(w)]
+    tvals = air.evaluate_transition(cur, nxt, periodic)
+
+    comb = None
+    for a, tv in zip(alphas, tvals):
+        term = tv * Felt(a)
+        comb = term if comb is None else comb + term
+    z_inv = transition_zerofier_inv_lde(n, blowup, xp)
+    comp = comb * z_inv
+
+    div_invs = group_divisor_inv_lde(groups, n, blowup, xp)
+    for beta, grp, dinv in zip(betas, groups, div_invs):
+        numer = cur[grp.column] - Felt(grp.value)
+        comp = comp + (numer * dinv) * Felt(beta)
+
+    # 5. interpolate composition; split into Q degree-<n columns
+    Q = air.ce_blowup()
+    comp_coeffs = ntt.coset_interpolate(comp.a, blowup, xp)  # (N, 8)
+    q_polys = comp_coeffs[:Q * n].reshape(Q, n, limb.NLIMB)
+    q_lde = xp.stack([
+        ntt.coset_evaluate(q_polys[i], blowup, xp, pows=pows)
+        for i in range(Q)])                          # (Q, N, 8)
+    ps_constraint = options.partition_size(Q)
+    q_rows = xp.transpose(q_lde, (1, 0, 2))
+    constraint_comm = commit_rows(q_rows, ps_constraint, xp)
+    coin.reseed(constraint_comm.root)
+
+    # 6. OOD point and frames
+    z = coin.draw()
+    g_trace = f128.get_root_of_unity(n)
+    zg = f128.mul(z, g_trace)
+    ood_t_cur = eval_polys_at(trace_polys, z, xp)
+    ood_t_next = eval_polys_at(trace_polys, zg, xp)
+    ood_q_cur = eval_polys_at(q_polys, z, xp)
+    ood_q_next = eval_polys_at(q_polys, zg, xp)
+    ood_evals = ood_t_cur + ood_q_cur + ood_t_next + ood_q_next
+    coin.reseed(pos.hash_elements(ood_evals))
+
+    # 7. DEEP composition over the LDE domain
+    gammas = coin.draw_many(w)
+    deltas = coin.draw_many(Q)
+
+    gt = None
+    for c in range(w):
+        term = cur[c] * Felt(gammas[c])
+        gt = term if gt is None else gt + term
+    for j in range(Q):
+        gt = gt + FVec(q_lde[j], xp) * Felt(deltas[j])
+
+    gz = sum(g * t for g, t in zip(gammas, ood_t_cur)) % P
+    gz = (gz + sum(d * q for d, q in zip(deltas, ood_q_cur))) % P
+    gzg = sum(g * t for g, t in zip(gammas, ood_t_next)) % P
+    gzg = (gzg + sum(d * q for d, q in zip(deltas, ood_q_next))) % P
+
+    xs_int = lde_points_host(n, blowup)
+    inv_xz = FVec.from_ints(f128.batch_inv([(x - z) % P for x in xs_int]),
+                            xp)
+    inv_xzg = FVec.from_ints(f128.batch_inv([(x - zg) % P for x in xs_int]),
+                             xp)
+    deep = (gt - Felt(gz)) * inv_xz + (gt - Felt(gzg)) * inv_xzg
+
+    # 8. FRI commit phase
+    num_layers = options.num_fri_layers(N)
+    fri_layers_vals = []                 # evaluations per layer (FVec)
+    fri_comms: List[MerkleCommitment] = []
+    fri_alphas = []
+    layer = deep
+    size = N
+    inv2 = f128.inv(2)
+    for d in range(num_layers):
+        half = size // 2
+        v0 = FVec(layer.a[:half], xp)
+        v1 = FVec(layer.a[half:], xp)
+        pair_rows = xp.stack([v0.a, v1.a], axis=1)      # (half, 2, 8)
+        comm = commit_rows(pair_rows, 2, xp)
+        fri_comms.append(comm)
+        fri_layers_vals.append(layer)
+        coin.reseed(comm.root)
+        alpha = coin.draw()
+        fri_alphas.append(alpha)
+        # fold: x0 = offset * g_d^i ; x1 = -x0
+        # v' = [v1(a-x0) - v0(a-x1)] / (x1-x0) = (v0(a+x0) - v1(a-x0))/(2x0)
+        wd = f128.get_root_of_unity(size)
+        x0s = []
+        cx = OFFSET
+        for _ in range(half):
+            x0s.append(cx)
+            cx = f128.mul(cx, wd)
+        x0 = FVec.from_ints(x0s, xp)
+        inv_2x0 = FVec.from_ints(
+            [f128.mul(inv2, f128.inv(v)) for v in x0s], xp)
+        a_f = Felt(alpha)
+        folded = (v0 * (a_f + x0) - v1 * (a_f - x0)) * inv_2x0
+        layer = folded
+        size = half
+
+    # remainder polynomial (coset interpolation over remaining domain)
+    rem_coeffs_l = ntt.coset_interpolate(layer.a, 1, xp)
+    rem_ints = [int(v) for v in limb.to_ints(_np.asarray(rem_coeffs_l))]
+    max_deg = options.fri_remainder_max_degree
+    assert all(v == 0 for v in rem_ints[max_deg + 1:]), \
+        "FRI remainder degree too high"
+    fri_remainder = list(reversed(rem_ints[:max_deg + 1]))  # highest first
+
+    # 9. grinding + query positions
+    pow_nonce = coin.grind(options.grinding_factor, device=device)
+    positions = coin.draw_integers(options.num_queries, N, pow_nonce)
+    positions = sorted(set(positions))
+
+    # 10. openings
+    rows_host = _np.asarray(rows)
+
+    def open_rows(comm: MerkleCommitment, mat_rows, idxs) -> QueryOpenings:
+        out_rows, out_paths = [], []
+        for p_ in idxs:
+            row = [int(v) for v in limb.to_ints(mat_rows[p_])]
+            out_rows.append(row)
+            out_paths.append(comm.open(p_))
+        return QueryOpenings(out_rows, out_paths,
+                             multiproof.compress(idxs, out_paths))
+
+    trace_open = open_rows(trace_comm, rows_host, positions)
+    constraint_open = open_rows(constraint_comm, _np.asarray(q_rows),
+                                positions)
+
+    fri_open: List[FriLayerOpenings] = []
+    pos_d = positions
+    size_d = N
+    for d in range(num_layers):
+        half = size_d // 2
+        folded = []
+        for p_ in pos_d:
+            m = p_ % half
+            if m not in folded:
+                folded.append(m)
+        layer_host = _np.asarray(fri_layers_vals[d].a)
+        pairs, paths = [], []
+        for m in folded:
+            v0 = int(limb.to_ints(layer_host[m:m + 1])[0])
+            v1 = int(limb.to_ints(layer_host[half + m:half + m + 1])[0])
+            pairs.append((v0, v1))
+            paths.append(fri_comms[d].open(m))
+        fri_open.append(FriLayerOpenings(
+            pairs, paths, multiproof.compress(folded, paths)))
+        pos_d = folded
+        size_d = half
+
+    return StarkProof(
+        context=context,
+        trace_root=trace_comm.root,
+        constraint_root=constraint_comm.root,
+        ood_trace_current=ood_t_cur,
+        ood_trace_next=ood_t_next,
+        ood_quotient_current=ood_q_cur,
+        ood_quotient_next=ood_q_next,
+        fri_roots=[c.root for c in fri_comms],
+        fri_remainder=fri_remainder,
+        pow_nonce=pow_nonce,
+        trace_openings=trace_open,
+        constraint_openings=constraint_open,
+        fri_openings=fri_open,
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -274,11 +552,14 @@ def expand_proof_openings(proof: StarkProof,
     _expand_rows(proof.trace_openings,
                  lambda row: hash_row_host([v % P for v in row], ps_main))
     if wide:
-        raise NotImplementedError(
-            "quadratic-extension proofs need stark_ext, not ported yet")
-    ps_con = opts.partition_size(Q)
-    _expand_rows(proof.constraint_openings,
-                 lambda row: hash_row_host(row, ps_con))
+        from .stark_ext import _ext_row_leaf
+        ps_con = opts.partition_size(2 * Q)
+        _expand_rows(proof.constraint_openings,
+                     lambda row: _ext_row_leaf(row, ps_con))
+    else:
+        ps_con = opts.partition_size(Q)
+        _expand_rows(proof.constraint_openings,
+                     lambda row: hash_row_host(row, ps_con))
 
     size_d = proof.context.trace_len * opts.blowup
     pos_d = list(positions)
@@ -290,8 +571,14 @@ def expand_proof_openings(proof: StarkProof,
             if m not in folded:
                 folded.append(m)
         if layer.batch is not None and not layer.paths:
-            leaves = [pos.hash_elements([v0, v1])
-                      for (v0, v1) in layer.pairs]
+            if wide:
+                from ..field import f128q
+                from .stark_ext import _fri_leaf
+                leaves = [_fri_leaf(f128q.unpack(v0), f128q.unpack(v1))
+                          for (v0, v1) in layer.pairs]
+            else:
+                leaves = [pos.hash_elements([v0, v1])
+                          for (v0, v1) in layer.pairs]
             try:
                 layer.paths, _ = multiproof.expand(layer.batch, folded,
                                                    leaves)
@@ -345,8 +632,9 @@ def verify_trace(proof: StarkProof, air_pi, min_security_bits: int = 0,
     """Full verification; raises VerifyError on any failure."""
     options = proof.context.options
     if options.field_extension == 2:
-        raise NotImplementedError(
-            "quadratic-extension proofs need stark_ext, not ported yet")
+        from .stark_ext import verify_trace_ext
+        verify_trace_ext(proof, air_pi, min_security_bits, air=air)
+        return
     n = proof.context.trace_len
     w = proof.context.trace_width
     blowup = options.blowup
