@@ -11,10 +11,15 @@ queries, grind 16, 27 hasher rounds) and aggregate them into one ZKLRC1
 artifact with `agg.prove_chain`, verify every StepProof with `verify_step`
 and the artifact with `verify_agg` — then the command line:
 
-  default  four-step matrix NTT, matrix DEEP, leveled constraint executor,
-           fused FRI chain (what `prove_program` does with no switch set);
-           all 16 segments through `agg.prove_chain`
-  earlier  ZKL_NO_MXU_NTT, ZKL_NO_MXU_DEEP, ZKL_CVM_LEVEL=0 and
+  default  the wave prover (parallel/mesh_prover.py: every stage once
+           over a wave of segments; 16 rollup-bench segments are one wave
+           on an 80 GB card), four-step matrix NTT, matrix DEEP, leveled
+           constraint executor, fused FRI chain (what `prove_program` does
+           with no switch set); all 16 segments through `agg.prove_chain`
+  serial   ZKL_WAVE=0: the serial segment loop with the default switches;
+           the first 2 segments through `prove_program`, whose StepProof
+           bytes must equal the wave's
+  earlier  ZKL_WAVE=0 and ZKL_NO_MXU_NTT, ZKL_NO_MXU_DEEP, ZKL_CVM_LEVEL=0,
            ZKL_NO_FUSED_FRI set: radix-2 NTT, limb-dot DEEP, stack
            executor, per-layer FRI loop; the first 2 segments through
            `prove_program`, whose StepProof bytes must equal the default
@@ -38,7 +43,9 @@ Each phase prints one JSON object on a line of its own:
   commit   Merkle commit of a (219, 8192, 8) array on the card: through
            the kernel vs through the plain permutation
   prove    per configuration (one line each, headed by the card's name
-           and power limit): the segments proved, per-phase seconds,
+           and power limit): the segments proved, per-phase seconds (the
+           default one: the wave width, the number of waves and each
+           wave's phases with the peak memory at each phase's end),
            rows/s of the step proofs, peak memory, kernel launches; for
            the default one also steps_s and agg_s of `prove_chain` with
            the split of agg_s (child challenges, the child batch on the
@@ -48,7 +55,7 @@ Each phase prints one JSON object on a line of its own:
            the seconds of decode_artifact + verify_agg, and the
            aggregation trace built again on the card and on the CPU (the
            same tensor code with each kernel's plain version): equal,
-           with both child-batch times; then the byte comparison
+           with both child-batch times; then the byte comparisons
   cli      `python -m zklisp_tpu_torch.cli prove examples/hello-zk.zlisp`
            at 128 bits (the aggregation over the quadratic extension) in a
            subprocess on the card, `cli verify` of its artifact, and of the
@@ -71,6 +78,12 @@ Options (for development; the default run takes none):
                     subset of phases (`shapes` needs `prove`)
   --segments K      K = 2, 4 or 8: the rollup-bench program scaled to K
                     segments of 4096 rows (2^16 rows: 16), aggregated whole
+  --profile         after phase `prove`, the default configuration's
+                    `prove_program` once more under torch.profiler: device
+                    busy seconds and idle share over the wave, kernel
+                    launches per segment of each wave phase and of each
+                    hand-written kernel
+ZKL_WAVE=k in the environment sets the default configuration's wave width.
 """
 
 from __future__ import annotations
@@ -141,7 +154,12 @@ INT8_OPS_PER_S = 1979e12
 # the switches of the earlier configuration (the JAX package's own names)
 EARLIER_ENV = {"ZKL_NO_MXU_NTT": "1", "ZKL_NO_MXU_DEEP": "1",
                "ZKL_CVM_LEVEL": "0", "ZKL_NO_FUSED_FRI": "1"}
-EARLIER_SEGMENTS = 2
+# the configurations after the default one: the serial loop (ZKL_WAVE=0),
+# with the default switches and with the earlier ones, on the first
+# SERIAL_SEGMENTS segments
+SERIAL_CONFIGS = {"serial": {"ZKL_WAVE": "0"},
+                  "earlier": dict(EARLIER_ENV, ZKL_WAVE="0")}
+SERIAL_SEGMENTS = 2
 
 
 def emit(obj) -> None:
@@ -612,19 +630,25 @@ def phase_shapes(batch_log, n_segments: int, agg_log=()):
     """Every distinct batch the step proofs (`batch_log`) and the
     aggregation (`agg_log`) gave the kernel, largest first:
     the wrapper and each entry of P12_ENTRIES vs permute12_plain (exact
-    equality, 27 rounds); the device times of the entries, taken in turns
+    equality, 27 rounds; the plain version's run is timed between two
+    events); the device times of the entries, taken in turns
     (10 launches queued behind a spin kernel, so that a small batch shows
     device time and not host time); the wrapper's time with its host
-    work; launches per segment and the bound.  The plain version is timed
-    at the two largest batches only.  Then the per-segment sums of each
-    time and of the bound (launches x ms over the batches)."""
+    work; launches per segment and the bound.  Then the per-segment sums
+    of each time and of the bound (launches x ms over the batches)."""
     rng = np.random.default_rng(20240602)
     batches = sorted(set(batch_log) | set(agg_log), reverse=True)
     checked, timed = [], []
     max_err = 0
-    for i, b in enumerate(batches):
+    for b in batches:
         x = torch.from_numpy(rand_states(rng, b)).to(DEV)
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        ev0.record()
         ref = plain_sliced(x, pos.HASHER_SUITE_ID, ROUNDS)
+        ev1.record()
+        torch.cuda.synchronize()
+        plain_ms = ev0.elapsed_time(ev1)
         errs = {"wrapper": max_abs_diff(
             poseidon_cuda.permute12(x, pos.HASHER_SUITE_ID, ROUNDS), ref)}
         for k, entry in P12_ENTRIES.items():
@@ -653,10 +677,8 @@ def phase_shapes(batch_log, n_segments: int, agg_log=()):
                "bound_by": by, "bound_ops_ms": ops_ms,
                "bound_bytes_ms": bytes_ms,
                "share_of_bound": bound_ms / ms["teams"],
-               "perms_per_s": b / ms["teams"] * 1e3}
-        if i < 2:
-            row["plain_ms"] = cuda_ms(lambda: plain_sliced(
-                x, pos.HASHER_SUITE_ID, ROUNDS), reps=2, warm=0)
+               "perms_per_s": b / ms["teams"] * 1e3,
+               "plain_ms": plain_ms}
         timed.append(row)
         del x
         torch.cuda.empty_cache()
@@ -670,7 +692,8 @@ def phase_shapes(batch_log, n_segments: int, agg_log=()):
           "queued behind a spin kernel, median of 4 rounds in turns; "
           "host_us: the host's time to issue one of those calls; "
           "wrapper_ms: one permute12 call between two events, host work "
-          "included, median of 5; plain_ms: median of 2",
+          "included, median of 5; plain_ms: the reference run of the "
+          "check, between two events",
           "per_segment_ms": per_segment, "checked": checked,
           "timed": timed})
     return max_err, timed, per_segment
@@ -794,29 +817,65 @@ def check_child_batch(agg, agg_pi, steps) -> dict:
             "traces_equal": equal, "child_batch_s": seconds}
 
 
+WAVE_PHASES = ("wave_lde", "wave_trace_commit", "wave_fs_coeffs",
+               "wave_composition", "wave_quotient", "wave_constraint_commit",
+               "wave_zpows", "wave_ood", "wave_deep_sync", "wave_fri",
+               "wave_openings", "wave_assembly")
+
+
+def wave_split(events) -> list:
+    """Per wave, from the phase log of a wave run: its width and each
+    wave_* phase's seconds and the peak allocated bytes at its end (the
+    host assembly of wave k runs in a worker thread and may end after
+    wave k+1's first phases: the k-th `wave_assembly` is wave k's)."""
+    waves, n_asm = [], 0
+    for name, dt, fields in events:
+        if name == "wave_lde":
+            waves.append({"S": fields.get("S"), "seconds": {}, "peak": {}})
+        if name == "wave_assembly":
+            w = waves[n_asm]
+            n_asm += 1
+        elif name in WAVE_PHASES and waves:
+            w = waves[-1]
+        else:
+            continue
+        w["seconds"][name] = w["seconds"].get(name, 0.0) + dt
+        if "peak_bytes" in fields:
+            w["peak"][name] = fields["peak_bytes"]
+    for w in waves:
+        w["total_s"] = sum(w["seconds"].values())
+    return waves
+
+
 def phase_prove(setup, config: str, env: dict, smi_line: str):
-    """Drive one configuration (`env` = the switches to set; the four are
-    cleared first) with every kernel's count set to 0 just before and
-    read just after: the default one through `agg.prove_chain` over all
-    segments, the earlier one through `prove_program` over the first
-    EARLIER_SEGMENTS.  Verify every StepProof (and the artifact)."""
+    """Drive one configuration (`env` = the switches to set; the four and
+    ZKL_WAVE=0 are cleared first, an outer ZKL_WAVE=k is kept for the
+    default one) with every kernel's count set to 0 just before and read
+    just after: the default one (the wave prover) through
+    `agg.prove_chain` over all segments, the serial ones through
+    `prove_program` over the first SERIAL_SEGMENTS.  Verify every
+    StepProof (and the artifact)."""
     from zklisp_tpu_torch.agg import aggregate as agg
     from zklisp_tpu_torch.crypto.blake3 import blake3
     from zklisp_tpu_torch.prove import prover
     from zklisp_tpu_torch.utils import tracing
 
+    outer_wave = os.environ.get("ZKL_WAVE")
     for k in EARLIER_ENV:
         os.environ.pop(k, None)
+    if outer_wave == "0":
+        os.environ.pop("ZKL_WAVE")
     os.environ.update(env)
     chain = not env
 
     seg_seconds, steps = [], []
-    steps_log_len = [0]       # poseidon12 launches when the last segment
+    steps_log_len = [0]       # poseidon12 launches when the step proofs
                               # returned: the later ones are aggregation
     last = [time.time()]
     first_segment = {}        # per-phase seconds of segment 0, which pays
                               # for the tables, the allocator and the build
     real_segment = prover.prove_segment
+    real_program = prover.prove_program
 
     def timed_segment(*a, **k):
         """The serial loop's segment prover, timed (it calls this module
@@ -826,17 +885,28 @@ def phase_prove(setup, config: str, env: dict, smi_line: str):
         seg_seconds.append(now - last[0])
         last[0] = now
         steps.append(out[0])
-        steps_log_len[0] = len(poseidon_cuda.permute12.batch_log)
         if len(steps) == 1:
             first_segment.update(tracing.summary())
         return out
 
+    def recorded_program(*a, **k):
+        """`prove_program` as `prove_chain` calls it (a module attribute
+        looked up at call time): its steps, and the kernel's batch log up
+        to its return."""
+        out = real_program(*a, **k)
+        steps.extend(out)
+        steps_log_len[0] = len(poseidon_cuda.permute12.batch_log)
+        return out
+
     def stop_early(_batch):
-        return len(steps) >= EARLIER_SEGMENTS
+        return len(steps) >= SERIAL_SEGMENTS
 
     tracing.reset()
     torch.cuda.reset_peak_memory_stats()
-    prover.prove_segment = timed_segment
+    if chain:
+        prover.prove_program = recorded_program
+    else:
+        prover.prove_segment = timed_segment
     counts_zero()
     t0 = last[0] = time.time()
     try:
@@ -844,20 +914,24 @@ def phase_prove(setup, config: str, env: dict, smi_line: str):
             proof, digest, agg_pi = agg.prove_chain(
                 setup["program"], setup["pi"], setup["opts"], device=DEV)
         else:
-            prover.prove_program(setup["program"], setup["pi"],
-                                 setup["opts"], on_steps=stop_early,
-                                 device=DEV)
+            real_program(setup["program"], setup["pi"], setup["opts"],
+                         on_steps=stop_early, device=DEV)
+            steps_log_len[0] = len(poseidon_cuda.permute12.batch_log)
         torch.cuda.synchronize()
     finally:
         prover.prove_segment = real_segment
+        prover.prove_program = real_program
         for k in env:
             os.environ.pop(k, None)
+        if outer_wave is not None:
+            os.environ["ZKL_WAVE"] = outer_wave
     t_prove = time.time() - t0
     launches, batch_log, shape_log = counts_read()
     batch_log, agg_log = (batch_log[:steps_log_len[0]],
                           batch_log[steps_log_len[0]:])
     peak = torch.cuda.max_memory_allocated()
     n_total = steps[0].proof.pi.segments_total if steps else 0
+    events = tracing.events()
 
     t0 = time.time()
     for i, step in enumerate(steps):
@@ -872,15 +946,20 @@ def phase_prove(setup, config: str, env: dict, smi_line: str):
         fail(f"the {config} path launched the poseidon12 kernel no time")
     if chain and not agg_log:
         fail("the aggregation launched the poseidon12 kernel no time")
-    if env:
+    if "ZKL_NO_MXU_NTT" in env:
         if launches["digit_dot"] != 0:
             fail("the earlier configuration launched digit_dot")
     elif launches["digit_dot"] <= 0:
-        fail("the default path launched the digit_dot kernel no time")
+        fail(f"the {config} path launched the digit_dot kernel no time")
+    waves = wave_split(events)
+    if chain and (not waves or sum(w["S"] for w in waves) < len(steps)):
+        fail("the default configuration did not prove through the wave")
+    if not chain and waves:
+        fail(f"the {config} configuration went through the wave")
 
     out = {"steps": [st.to_bytes() for st in steps], "launches": launches,
            "batch_log": batch_log, "agg_log": agg_log,
-           "shape_log": shape_log}
+           "shape_log": shape_log, "waves": waves}
     rows = 4096 * len(steps)
     per_phase = {k: v for k, v in tracing.summary().items()
                  if k not in agg.AGG_PHASES}
@@ -898,16 +977,22 @@ def phase_prove(setup, config: str, env: dict, smi_line: str):
             "prove_s": t_prove, "verify_s": t_verify,
             "rows_per_s": rows / (agg.LAST_CHAIN_TIMINGS["steps_s"]
                                   if chain else t_prove),
-            "segment_s": seg_seconds,
-            "per_phase_s_first_segment": first_segment,
-            "per_phase_s_later_segments_mean": {
-                k: (v - first_segment.get(k, 0.0)) / (n - 1)
-                for k, v in per_phase.items()},
             "peak_memory_bytes": peak, "launches": launches,
             "launches_per_segment": {
                 "poseidon12": len(batch_log) / n,
                 "digit_dot": launches["digit_dot"] / n},
             "states_per_segment": sum(batch_log) / n}
+    if chain:
+        line.update({"wave_width": max(w["S"] for w in waves),
+                     "waves": len(waves), "per_wave": waves,
+                     "per_phase_s": per_phase})
+    else:
+        line.update({
+            "segment_s": seg_seconds,
+            "per_phase_s_first_segment": first_segment,
+            "per_phase_s_later_segments_mean": {
+                k: (v - first_segment.get(k, 0.0)) / (n - 1)
+                for k, v in per_phase.items()}})
     if chain:
         if n != n_total or n != setup["rows"] // 4096:
             fail(f"prove_chain proved {n} of {n_total} segments")
@@ -940,19 +1025,117 @@ def phase_prove(setup, config: str, env: dict, smi_line: str):
     return out
 
 
-def phase_prove_both(n_segments: int, smi_line: str):
-    """The default configuration through prove_chain, then the earlier
-    one on the first segments; their StepProof bytes must be equal."""
+def profile_wave(setup, wave_s: float, smi_line: str):
+    """The default configuration's `prove_program` (the wave) once more,
+    under torch.profiler (CPU + CUDA activities): device-busy seconds
+    (the sum of the kernels' and copies' device times), the idle share
+    against the unprofiled wave's wall seconds `wave_s` and against the
+    profiled one; per wave phase its wall seconds, the device-busy
+    seconds of the kernels that start inside the phase's range on the
+    device, and the kernel launch calls (`cudaLaunchKernel`) inside its
+    range on the host, per segment; each hand-written kernel's device ms
+    and launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from zklisp_tpu_torch.prove import prover
+    from zklisp_tpu_torch.utils import tracing
+
+    for k in EARLIER_ENV:
+        os.environ.pop(k, None)
+    tracing.reset()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        steps = prover.prove_program(setup["program"], setup["pi"],
+                                     setup["opts"], device=DEV)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    waves = wave_split(tracing.events())
+    profiled_wave_s = sum(w["total_s"] for w in waves)
+    n_seg = len(steps)
+
+    evs = prof.events()
+    on_card = [e for e in evs if e.device_type == DeviceType.CUDA]
+    kernels_ = [e for e in on_card if not e.name.startswith("phase:")]
+    busy_s = sum(e.time_range.end - e.time_range.start
+                 for e in kernels_) / 1e6
+    starts = sorted((e.time_range.start, e.time_range.end - e.time_range.start)
+                    for e in kernels_)
+    launches = sorted((e.time_range.start, e.thread) for e in evs
+                      if e.device_type == DeviceType.CPU and e.name in (
+                          "cudaLaunchKernel", "cudaLaunchKernelExC",
+                          "cuLaunchKernel", "cuLaunchKernelEx"))
+    by_phase = collections.defaultdict(lambda: {
+        "wall_s": 0.0, "device_busy_s": 0.0, "launch_calls": 0})
+    for e in evs:
+        if not e.name.startswith("phase:wave_"):
+            continue
+        row = by_phase[e.name[6:]]
+        lo, hi = e.time_range.start, e.time_range.end
+        if e.device_type == DeviceType.CUDA:
+            row["device_busy_s"] += sum(d for t, d in starts
+                                        if lo <= t <= hi) / 1e6
+        else:
+            row["wall_s"] += (hi - lo) / 1e6
+            row["launch_calls"] += sum(1 for t, th in launches
+                                       if lo <= t <= hi and th == e.thread)
+    per_phase = {k: {"wall_s": v["wall_s"],
+                     "device_busy_s": v["device_busy_s"],
+                     "idle_share": (1.0 - v["device_busy_s"] / v["wall_s"]
+                                    if v["wall_s"] else None),
+                     "launch_calls_per_segment": v["launch_calls"] / n_seg}
+                 for k, v in sorted(by_phase.items())}
+    ported = {name: {"device_ms": sum(e.time_range.end - e.time_range.start
+                                      for e in kernels_
+                                      if name in e.name) / 1e3,
+                     "launches": sum(1 for e in kernels_ if name in e.name)}
+              for name in ("poseidon12", "digit_dot")}
+    top = collections.Counter()
+    count = collections.Counter()
+    for e in kernels_:
+        top[e.name[:90]] += e.time_range.end - e.time_range.start
+        count[e.name[:90]] += 1
+    print(smi_line, flush=True)
+    emit({"phase": "profile", "config": "default", "segments": n_seg,
+          "waves": len(waves), "wave_width": max(w["S"] for w in waves),
+          "profiled_wall_s": wall, "profiled_wave_s": profiled_wave_s,
+          "unprofiled_wave_s": wave_s, "device_busy_s": busy_s,
+          "device_busy_s_per_segment": busy_s / n_seg,
+          "device_idle_share_of_unprofiled_wave": 1.0 - busy_s / wave_s,
+          "device_idle_share_of_profiled_wave":
+              1.0 - busy_s / profiled_wave_s,
+          "device_ops": len(kernels_),
+          "device_ops_per_segment": len(kernels_) / n_seg,
+          "launch_calls": len(launches),
+          "launch_calls_per_segment": len(launches) / n_seg,
+          "per_phase": per_phase, "ported_kernels": ported,
+          "top_kernels": [{"name": k, "device_ms": us / 1e3,
+                           "count": count[k]}
+                          for k, us in top.most_common(12)]})
+
+
+def phase_prove_all(n_segments: int, smi_line: str, profile: bool):
+    """The default configuration (the wave) through prove_chain, then the
+    serial ones on the first segments; each one's StepProof bytes must
+    equal the wave's."""
     setup = prove_setup(n_segments)
     new = phase_prove(setup, "default", {}, smi_line)
-    old = phase_prove(setup, "earlier", dict(EARLIER_ENV), smi_line)
-    both = min(len(new["steps"]), len(old["steps"]))
-    equal = [new["steps"][i] == old["steps"][i] for i in range(both)]
-    emit({"phase": "prove", "compare": "StepProof bytes, default vs "
-          "earlier configuration", "segments": both, "equal": equal,
-          "bytes": [len(b) for b in new["steps"][:both]]})
-    if both < 2 or not all(equal):
-        fail("the two configurations' StepProof bytes differ")
+    if profile:
+        profile_wave(setup, sum(w["total_s"] for w in new["waves"]),
+                     smi_line)
+    for config, env in SERIAL_CONFIGS.items():
+        old = phase_prove(setup, config, env, smi_line)
+        both = min(len(new["steps"]), len(old["steps"]))
+        equal = [new["steps"][i] == old["steps"][i] for i in range(both)]
+        emit({"phase": "prove", "compare": f"StepProof bytes, default "
+              f"(wave) vs {config} configuration", "segments": both,
+              "equal": equal,
+              "bytes": [len(b) for b in new["steps"][:both]]})
+        if both < SERIAL_SEGMENTS or not all(equal):
+            fail(f"the wave's and the {config} configuration's StepProof "
+                 f"bytes differ")
     return new
 
 
@@ -1044,34 +1227,50 @@ def main() -> None:
     ap.add_argument("--phases", default=ALL_PHASES)
     ap.add_argument("--segments", type=int, default=SEGMENTS,
                     choices=[2, 4, 8, 16])
+    ap.add_argument("--profile", action="store_true")
     args = ap.parse_args()
     phases = args.phases.split(",")
     if "shapes" in phases and "prove" not in phases:
         ap.error("phase `shapes` needs phase `prove`")
 
+    seconds = {}
+    t0 = time.time()
+
+    def lap(name: str) -> None:
+        nonlocal t0
+        seconds[name] = round(time.time() - t0, 1)
+        t0 = time.time()
+
     smi_line = phase_device()
     if "build" in phases:
         phase_build()
+        lap("build")
     errs = {"poseidon12": 0, "digit_dot": 0}
     timed = {}
     if "kernels" in phases:
         errs["poseidon12"] = phase_kernels()
         errs["digit_dot"] = phase_kernels_digit_dot()
+        lap("kernels")
     if "commit" in phases:
         phase_commit()
+        lap("commit")
     if "prove" in phases:
-        run = phase_prove_both(args.segments, smi_line)
+        run = phase_prove_all(args.segments, smi_line, args.profile)
+        lap("prove")
     if "cli" in phases:
         phase_cli(smi_line)
+        lap("cli")
     if "shapes" in phases:
         err, timed["poseidon12"], p12_sums = phase_shapes(
             run["batch_log"], len(run["steps"]), run["agg_log"])
         errs["poseidon12"] = max(errs["poseidon12"], err)
+        lap("shapes_poseidon12")
         err, timed["digit_dot"] = phase_shapes_digit_dot(run["shape_log"])
         errs["digit_dot"] = max(errs["digit_dot"], err)
+        lap("shapes_digit_dot")
         emit(kernels_summary(run, errs, timed, p12_sums))
     emit({"phase": "total", "seconds": round(time.time() - T_START, 1),
-          "phases": phases})
+          "phases": phases, "phase_seconds": seconds})
     print(smi_line, flush=True)
     if set(phases) >= set(ALL_PHASES.split(",")):
         emit({"ok": True, "device": {

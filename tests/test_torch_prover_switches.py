@@ -56,6 +56,9 @@ def _jax_program():
 
 
 def test_per_segment_masks_equal_jax_host(monkeypatch):
+    # the serial loop, as in the JAX host path compared with (the wave's
+    # per-segment masks: tests/test_torch_wave.py)
+    monkeypatch.setenv("ZKL_WAVE", "0")
     prog, pub = _port_program()
     opts = t_params.ProverOptions(**KW)
     segs = t_planner.plan_segments(prog, pub, opts)

@@ -9,7 +9,9 @@ tensor its plain version.
   * `hash_rows` — winterfell `hash_elements` of B rows of W field
     elements each (Merkle leaf hashing), vectorized over B.
   * `merge_level` — B/2 parallel digest merges (Merkle tree level).
-  * `merkle_tree` — bottom-up tree build; returns all levels.
+  * `merkle_tree` — bottom-up build of one tree, or of several equal
+    trees laid end to end (a wave's segments): each level is ONE merge
+    over every tree, since siblings never cross a tree.
 
 Digests are carried as single field elements (lane 0); the byte digest is
 fe_to_bytes_fold(fe) = 16 LE bytes + 16 zero bytes.
@@ -134,15 +136,19 @@ def merge_level(digests):
     return sponge_fes(pairs, b"zkl/winter/hash/merge")
 
 
-def merkle_tree(leaf_digests) -> List:
-    """Bottom-up Poseidon Merkle tree.
+def merkle_tree(leaf_digests, n_trees: int = 1) -> List:
+    """Bottom-up Poseidon Merkle tree(s).
 
-    leaf_digests: (N, 8) with N a power of two.
-    Returns [leaves, level1, ..., root(1,8)] (tensors on the same device).
-    """
+    leaf_digests: (n_trees * N, 8), the leaves of `n_trees` trees of N
+    leaves each (N a power of two) laid end to end.  Returns [leaves,
+    level1, ..., roots (n_trees, 8)] (tensors on the same device); level
+    d holds every tree's nodes of that level, tree t at rows
+    [t * N >> d, (t + 1) * N >> d), so sibling and parent indices are
+    those of one tree (i ^ 1, i >> 1) and a sibling path of leaf p of
+    tree t is the path of leaf t * N + p."""
     levels = [leaf_digests]
     cur = leaf_digests
-    while cur.shape[0] > 1:
+    while cur.shape[0] > n_trees:
         cur = merge_level(cur)
         levels.append(cur)
     return levels

@@ -102,36 +102,48 @@ class RandomCoin:
 
     def grind(self, grinding_factor: int, device=None) -> int:
         """Find the smallest nonce whose check_leading_zeros >=
-        grinding_factor.
+        grinding_factor (`grind_many` of this coin alone)."""
+        return RandomCoin.grind_many([self], grinding_factor, device)[0]
+
+    @staticmethod
+    def grind_many(coins: List["RandomCoin"], grinding_factor: int,
+                   device=None) -> List[int]:
+        """Per coin, the smallest nonce whose check_leading_zeros >=
+        grinding_factor: each coin's `grind`, all coins searched at once.
 
         The search is an embarrassingly parallel Poseidon scan (one
         permutation per candidate): merge_with_int(seed, v) absorbs
         exactly two chunks — fold(seed) and v — and the pass/fail test
         is `low 64 bits of the digest = 0 (mod 2^g)`.  It runs on
-        `device`, which the caller hands in (default: the CUDA card): sweeps of 2^16 candidates
-        on a CUDA card (through the poseidon12 kernel, one integer back
-        per sweep), smaller sweeps on the CPU.  Sweeps go in ascending
-        order and each returns its FIRST hit, so the result is the
-        smallest passing nonce either way.
-        """
+        `device`, which the caller hands in (default: the CUDA card):
+        sweeps of 2^16 candidates per coin on a CUDA card (through the
+        poseidon12 kernel, one launch and one copy of S integers per
+        sweep), smaller sweeps on the CPU.  Every sweep scans every coin
+        (one batch shape for the wave); sweeps go in ascending order and
+        each returns every coin's FIRST hit, so each result is that
+        coin's smallest passing nonce."""
         if grinding_factor <= 0:
-            return 0
+            return [0] * len(coins)
         from ..device import resolve
         from ..field import f128, limb
         from . import kernels
 
         dev = resolve(device)
-        seed_fe = f128.fold_bytes32_to_fe(self.seed)
-        seed_chunk = limb.from_ints([seed_fe], dev)[0]      # (8,)
+        seeds = limb.from_ints(
+            [f128.fold_bytes32_to_fe(c.seed) for c in coins], dev)
         if dev.type == "cuda":
             batch = 1 << 16
         else:
             batch = max(1024, min(1 << 13, 2 << grinding_factor))
+        nonces: List[int | None] = [None] * len(coins)
         start = 0
         while start < (1 << 62):
-            hit = kernels.grind_hit(seed_chunk, start, batch,
-                                    grinding_factor)
-            if hit < batch:
-                return start + hit
+            hits = kernels.grind_hit_many(seeds, start, batch,
+                                          grinding_factor)
+            for i, h in enumerate(hits):
+                if nonces[i] is None and h < batch:
+                    nonces[i] = start + h
+            if all(v is not None for v in nonces):
+                return nonces
             start += batch
         raise RuntimeError("grinding failed to find a nonce")

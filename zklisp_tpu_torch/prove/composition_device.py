@@ -135,12 +135,14 @@ def collect_generic(air: ZkLispAir, cur, nxt, periodic):
 def eval_scan_blocks(air: ZkLispAir, lde, shift: int, gates, alphas_arr,
                      specs):
     """Sum of the Poseidon/ROM round-constraint contributions, each
-    combined with its alpha slice; (N, 8) or None when `specs` is empty.
+    combined with its alpha slice; (..., N, 8) or None when `specs` is
+    empty.
 
-    lde: (w, N, 8) column-major evaluations; the next-row view of a
-    column is its roll by `shift` (the evaluation domain's blowup).
-    gates: (27, period, 8), ONE period of each round-gate column.
-    alphas_arr: (n_constraints, 8)."""
+    lde: (..., w, N, 8) column-major evaluations, a leading segment axis
+    for a wave (a strided view is fine); the next-row view of a column
+    is its roll by `shift` (the evaluation domain's blowup) within its
+    segment.  gates: (27, period, 8), ONE period of each round-gate
+    column.  alphas_arr: (..., n_constraints, 8), each segment's own."""
     acc = None
     for kind, ix in specs:
         if kind == "poseidon":
@@ -153,47 +155,53 @@ def eval_scan_blocks(air: ZkLispAir, lde, shift: int, gates, alphas_arr,
 
 def _scan_rounds(lanes_cur, lanes_nxt, gate, gr, mds, rc, a_round):
     """Shared 27-round loop: sum_j sum_i a[j,i] * gate_j * (nxt_i - y_ji)
-    where y = MDS * cur^3 + rc_j.  gr is (27, period, 8) with period
+    where y = MDS * cur^3 + rc_j.  lanes (..., L, N, 8), gate (..., N, 8)
+    or None, a_round (..., 27, L, 8); gr is (27, period, 8) with period
     dividing N; each round's gate is tiled inside the loop.  MDS * cur^3
     does not depend on the round and is computed once."""
-    N = lanes_cur.shape[1]
+    N = lanes_cur.shape[-2]
     reps = N // gr.shape[1]
-    s3 = tl.cube(lanes_cur)                              # (L, N, 8)
-    y0 = tl.dot(mds[:, None, :, :], s3.transpose(0, 1)[None])  # (L, N, 8)
-    acc = tl.zeros((N,), lanes_cur.device)
+    s3 = tl.cube(lanes_cur)                              # (..., L, N, 8)
+    y0 = tl.dot(mds[:, None, :, :],
+                s3.transpose(-3, -2)[..., None, :, :, :])  # (..., L, N, 8)
+    acc = tl.zeros(lanes_cur.shape[:-3] + (N,), lanes_cur.device)
     for j in range(POSEIDON_ROUNDS):
         y = tl.add(y0, rc[j][:, None, :])
         diff = tl.sub(lanes_nxt, y)
         gr_full = gr[j] if reps == 1 else gr[j].repeat(reps, 1)
         g = tl.mul(gate, gr_full) if gate is not None else gr_full
-        gated = tl.mul(diff, g[None])
-        term = tl.dot(gated.transpose(0, 1), a_round[j][None])
+        gated = tl.mul(diff, g[..., None, :, :])
+        term = tl.dot(gated.transpose(-3, -2),
+                      a_round[..., j, None, :, :])
         acc = tl.add(acc, term)
     return acc
+
+
+def _round_alphas(alphas_arr, ix, lanes):
+    return alphas_arr[..., ix:ix + POSEIDON_ROUNDS * lanes, :].reshape(
+        alphas_arr.shape[:-2] + (POSEIDON_ROUNDS, lanes, tl.NLIMB))
 
 
 def _poseidon_scan(air, lde, shift, gates, alphas_arr, ix):
     c = air.cols
     idx = torch.tensor([c.lane_index(i) for i in range(12)],
                        device=lde.device)
-    lanes_cur = lde.index_select(0, idx)
-    lanes_nxt = torch.roll(lanes_cur, -shift, 1)
-    pa = lde[c.pose_active]
+    lanes_cur = lde.index_select(-3, idx)
+    lanes_nxt = torch.roll(lanes_cur, -shift, -2)
+    pa = lde[..., c.pose_active, :, :]
     mds = tl.from_ints(air.poseidon_mds, lde.device)
     rc = tl.from_ints(air.poseidon_rc, lde.device)
-    a_round = alphas_arr[ix:ix + POSEIDON_ROUNDS * 12].reshape(
-        POSEIDON_ROUNDS, 12, tl.NLIMB)
-    return _scan_rounds(lanes_cur, lanes_nxt, pa, gates, mds, rc, a_round)
+    return _scan_rounds(lanes_cur, lanes_nxt, pa, gates, mds, rc,
+                        _round_alphas(alphas_arr, ix, 12))
 
 
 def _rom_scan(air, lde, shift, gates, alphas_arr, ix):
     c = air.cols
     idx = torch.tensor([c.rom_s_index(i) for i in range(3)],
                        device=lde.device)
-    s_cur = lde.index_select(0, idx)
-    s_nxt = torch.roll(s_cur, -shift, 1)
+    s_cur = lde.index_select(-3, idx)
+    s_nxt = torch.roll(s_cur, -shift, -2)
     mds = tl.from_ints(air.rom_mds, lde.device)
     rc = tl.from_ints(air.rom_rc, lde.device)
-    a_round = alphas_arr[ix:ix + POSEIDON_ROUNDS * 3].reshape(
-        POSEIDON_ROUNDS, 3, tl.NLIMB)
-    return _scan_rounds(s_cur, s_nxt, None, gates, mds, rc, a_round)
+    return _scan_rounds(s_cur, s_nxt, None, gates, mds, rc,
+                        _round_alphas(alphas_arr, ix, 3))

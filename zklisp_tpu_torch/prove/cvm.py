@@ -523,16 +523,20 @@ def execute_leveled(lp: LevelProgram, lde, per_p, p_last, alphas,
                     blowup: int):
     """Leveled executor: same contract as `execute`.
 
-    Rows are processed in chunks sized so that the unified operand table
+    Rows are processed in chunks of C rows of every segment at once,
+    sized so that one segment's share of the unified operand table
     (cur | nxt | periodic | p_last | consts | one slot per binop, each a
     (C, 8) row block) stays under the table budget whatever N is
-    (`level_chunk_rows`).  The budget moves no proof byte.  The
-    table is allocated once; every slot is written (by its level's
-    batched op, at its static position) before a later level gathers it,
-    so chunks need no clearing."""
+    (`level_chunk_rows`): a wave's table holds S such shares, so its
+    chunks are as many as one segment's.  The budget moves no proof
+    byte.  The table is allocated once; every slot is written (by its
+    level's batched op, at its static position) before a later level
+    gathers it, so chunks need no clearing."""
     from ..field import limb as tl
 
-    w, N = lde.shape[0], lde.shape[1]
+    lde4 = lde if lde.dim() == 4 else lde[None]
+    al4 = alphas if alphas.dim() == 3 else alphas[None]
+    S, w, N = lde4.shape[0], lde4.shape[1], lde4.shape[2]
     n_perp, period = per_p.shape[0], per_p.shape[1]
     dev = lde.device
     sched, root_flat, root_aidx, consts = _level_tensors(lp, w, n_perp, dev)
@@ -542,24 +546,28 @@ def execute_leveled(lp: LevelProgram, lde, per_p, p_last, alphas,
 
     C = level_chunk_rows(N, rows_total, period)
 
-    U = torch.empty((rows_total, C, tl.NLIMB), dtype=tl.DTYPE, device=dev)
+    U = torch.empty((rows_total, S, C, tl.NLIMB), dtype=tl.DTYPE,
+                    device=dev)
     o_per, o_plast, o_const = 2 * w, 2 * w + n_perp, 2 * w + n_perp + 1
-    U[o_const:n_fixed] = consts[:, None, :]
-    U[o_per:o_plast] = per_p.repeat(1, C // period, 1)
+    U[o_const:n_fixed] = consts[:, None, None, :]
+    U[o_per:o_plast] = per_p.repeat(1, C // period, 1)[:, None]
     rows = torch.arange(C, dtype=torch.int64, device=dev)
-    al = alphas[root_aidx][:, None, :]
+    al = al4[:, root_aidx].transpose(0, 1)[:, :, None, :]   # (R, S, 1, 8)
     ops = {"mul": tl.mul, "add": tl.add, "sub": tl.sub}
     accs = []
     for r0 in range(0, N, C):
-        U[:w] = lde[:, r0:r0 + C]
-        U[w:o_per] = lde.index_select(1, (rows + (r0 + blowup)) % N)
+        U[:w] = lde4[:, :, r0:r0 + C].transpose(0, 1)
+        # the next row wraps within each segment
+        U[w:o_per] = lde4.index_select(
+            2, (rows + (r0 + blowup)) % N).transpose(0, 1)
         U[o_plast] = p_last[r0:r0 + C]
         for lvl in sched:
             for kind, a_idx, b_idx, start in lvl:
                 U[start:start + a_idx.shape[0]] = ops[kind](U[a_idx],
                                                             U[b_idx])
         accs.append(tl.sum_mod(tl.mul(U[root_flat], al), 0))
-    return accs[0] if len(accs) == 1 else torch.cat(accs)
+    acc = accs[0] if len(accs) == 1 else torch.cat(accs, dim=1)
+    return acc if lde.dim() == 4 else acc[0]
 
 
 # ---------------------------------------------------------------------------
@@ -568,18 +576,20 @@ def execute_leveled(lp: LevelProgram, lde, per_p, p_last, alphas,
 
 def execute(prog: CvmProgram, lde, per_p, p_last, alphas, blowup: int):
     """Run the program over the whole evaluation domain: returns the
-    (N, 8) accumulated sum_i alpha_i * C_i.
+    (..., N, 8) accumulated sum_i alpha_i * C_i.
 
-    lde (w, N, 8) column-major evaluations; per_p (n_perp, period, 8)
-    one period of each short-periodic column; p_last (N, 8); alphas
-    (n_constraints, 8).
+    lde (..., w, N, 8) column-major evaluations (a leading segment axis
+    for a wave; a strided view is fine); per_p (n_perp, period, 8) one
+    period of each short-periodic column; p_last (N, 8); alphas
+    (..., n_constraints, 8), each segment's own.
 
     A CUDA tensor takes the leveled executor, a CPU tensor the stack
     machine (ZKL_CVM_LEVEL=1/0 overrides); both give identical limbs.
     The stack machine is a Python loop over the recorded instructions,
-    each a batched limb op over all N rows; `nxt` columns are rolls of
-    `lde` by `blowup`, short-periodic columns are tiled from one period,
-    constants stay (1, 8) and broadcast."""
+    each a batched limb op over all N rows (of every segment); `nxt`
+    columns are rolls of `lde` by `blowup` within each segment,
+    short-periodic columns are tiled from one period, constants stay
+    (1, 8) and broadcast."""
     from ..field import limb as tl
 
     choice = os.environ.get("ZKL_CVM_LEVEL", "")
@@ -589,21 +599,21 @@ def execute(prog: CvmProgram, lde, per_p, p_last, alphas, blowup: int):
         return execute_leveled(prog.levels, lde, per_p, p_last, alphas,
                                blowup)
 
-    N = lde.shape[1]
+    N = lde.shape[-2]
     reps = N // per_p.shape[1]
     imm = tl.from_numpy(prog.imm, lde.device)
     stack: list = []
     slots: dict = {}
-    acc = tl.zeros((N,), lde.device)
+    acc = tl.zeros(lde.shape[:-3] + (N,), lde.device)
     for i in range(prog.n_instr):
         op = int(prog.ops[i])
         a = int(prog.arg[i])
         if op == OP_NOP:
             continue
         if op == OP_PUSH_CUR:
-            stack.append(lde[a])
+            stack.append(lde[..., a, :, :])
         elif op == OP_PUSH_NXT:
-            stack.append(torch.roll(lde[a], -blowup, 0))
+            stack.append(torch.roll(lde[..., a, :, :], -blowup, -2))
         elif op == OP_PUSH_PER:
             stack.append(per_p[a].repeat(reps, 1))
         elif op == OP_PUSH_CONST:
@@ -616,7 +626,8 @@ def execute(prog: CvmProgram, lde, per_p, p_last, alphas, blowup: int):
             stack.append(slots[a])
         elif op == OP_EMIT:
             top = stack.pop()
-            acc = tl.add(acc, tl.mul(top, alphas[int(prog.aidx[i])][None]))
+            acc = tl.add(acc, tl.mul(
+                top, alphas[..., int(prog.aidx[i]), None, :]))
         else:
             top = stack.pop()
             sec = stack.pop()

@@ -3,7 +3,11 @@
 prove_program: plan segments -> build the full trace once -> per segment
 (serial loop, `prev_state` chained): derive the segment layout, slice the
 trace, compute boundary state, prove with the device segment prover
-(stark_device.prove_trace), wrap into a zl1 StepProof.
+(stark_device.prove_trace), wrap into a zl1 StepProof.  A program of more
+than one segment goes to the wave prover instead
+(parallel/mesh_prover.py: every stage once over a wave of segments, the
+same StepProof bytes), as in the JAX package; ZKL_WAVE=0 (read at call
+time) keeps the serial loop.
 
 verify_step: verify one StepProof against its recorded public inputs
 with the host verifier (stark.verify_trace).
@@ -16,7 +20,7 @@ usage mask instead, as the JAX package's host path does.  ZKL_PREFLIGHT=
 console|json runs the row-wise constraint check before each segment is
 proved.
 
-Not here yet: the wave prover, streamed traces, upload prefetch and
+Not here yet: streamed traces, upload prefetch in the serial loop and
 parallel segment proving.
 """
 
@@ -92,15 +96,27 @@ def prove_program(program: Program, pub_inputs: pi_mod.PublicInputs,
     card; `device="cpu"` only when the caller asks) and return the
     StepProofs in order.
 
-    on_steps: optional hook called with each finished StepProof (as a
-    one-element list) as soon as it is assembled.  If it returns True
-    the loop stops after that segment and the steps proved so far are
-    returned (a deliberately partial run, e.g. under a time budget)."""
+    on_steps: optional hook called with each batch of finished
+    StepProofs as soon as it is assembled: one segment's in the serial
+    loop, one wave's in the wave prover.  If it returns True, proving
+    stops after that batch and the steps proved so far are returned (a
+    deliberately partial run, e.g. under a time budget).
+
+    More than one segment: the wave prover (`ZKL_WAVE=0` opts out), on
+    any device.  ZKL_MESH (several GPUs) raises NotImplementedError."""
     dev = resolve(device)
+    if os.environ.get("ZKL_MESH", "") not in ("", "0"):
+        from ..parallel.mesh_prover import prove_program_mesh
+        return prove_program_mesh(program, pub_inputs, opts, device=dev,
+                                  on_steps=on_steps)
     base_opts = opts.to_proof_options()
     segments = planner.plan_segments(program, pub_inputs, opts)
     if not segments:
         raise ProveError("segment planner returned no segments")
+    if len(segments) > 1 and os.environ.get("ZKL_WAVE", "") != "0":
+        from ..parallel.mesh_prover import prove_program_mesh
+        return prove_program_mesh(program, pub_inputs, opts, device=dev,
+                                  on_steps=on_steps)
 
     full_trace = tb.build_trace(program, pub_inputs)
     check_merkle_root_binding(full_trace, pub_inputs)
@@ -123,21 +139,24 @@ def prove_program(program: Program, pub_inputs: pi_mod.PublicInputs,
     return steps
 
 
-def _uniform_segments() -> bool:
+def _uniform_segments(in_mesh: bool = False) -> bool:
     """Uniform-segment mode (default on; the port is a device path):
     every segment keeps the program-wide feature mask and the FULL
     trace's usage mask, so all segments share one AIR structure and one
-    set of cached tables.  Opt out: ZKL_UNIFORM_SEGMENTS=0, which trims
-    each segment to its own features as the JAX package's host path
-    does."""
+    set of cached tables (and one wave).  Opt out: ZKL_UNIFORM_SEGMENTS=0,
+    which trims each segment to its own features as the JAX package's
+    host path does.  `in_mesh` (the wave prover asks) is the JAX
+    package's signature: there the wave counts as a device path; in the
+    port both paths are, so it changes nothing."""
     return os.environ.get("ZKL_UNIFORM_SEGMENTS", "") != "0"
 
 
-def uniform_usage_for(full_trace) -> Optional[Tuple[int, int]]:
+def uniform_usage_for(full_trace,
+                      in_mesh: bool = False) -> Optional[Tuple[int, int]]:
     """(vm_usage_mask, ram_delta_clk_bits) of the FULL trace, cached on
     the trace object; None when uniform mode is off (each segment's
     usage is then scanned from its own rows)."""
-    if not _uniform_segments():
+    if not _uniform_segments(in_mesh):
         return None
     if getattr(full_trace, "_uniform_usage", None) is None:
         full_trace._uniform_usage = compute_vm_usage_mask(
@@ -146,12 +165,12 @@ def uniform_usage_for(full_trace) -> Optional[Tuple[int, int]]:
 
 
 def _segment_layout(program: Program, pub_inputs: pi_mod.PublicInputs,
-                    seg: tb.Segment):
+                    seg: tb.Segment, in_mesh: bool = False):
     """Effective feature mask + column layout for one segment: the
     program-wide feature mask in uniform-segment mode, else the
     segment's own mask where it differs."""
     eff_mask = base_mask = pub_inputs.feature_mask
-    if not _uniform_segments():
+    if not _uniform_segments(in_mesh):
         seg_features = planner.compute_segment_features_for_levels(
             program, seg.r_start // STEPS_PER_LEVEL_P2,
             seg.r_end // STEPS_PER_LEVEL_P2)
@@ -213,14 +232,7 @@ def prove_segment(suite_id: bytes, rom_acc: Tuple[int, int, int],
         pi_len = len(air_pi.to_elements())
         air = ZkLispAir(trace.width, trace.length, air_pi)
 
-    # ZKL_PREFLIGHT (prove.rs:128-136): the row-wise constraint check
-    # with the exact prover AIR before proving
-    pf_mode = os.environ.get("ZKL_PREFLIGHT", "off").lower()
-    if pf_mode in ("console", "json"):
-        from ..air.preflight import run_preflight
-        violations = run_preflight(air, trace)
-        if violations:
-            raise ProveError(f"preflight violations: {violations[:3]}")
+    preflight(air, trace)
 
     meta = StepMeta.from_env(trace.length, wf_opts, min_bits, pi_len)
     # segment limbs as a numpy slice of the cached full-trace u16 array
@@ -238,6 +250,19 @@ def prove_segment(suite_id: bytes, rom_acc: Tuple[int, int, int],
         step = StepProof(zl1, pub_inputs, rom_acc, air_pi.vm_usage_mask,
                          air_pi.ram_delta_clk_bits)
     return step, state_out_hash
+
+
+def preflight(air: ZkLispAir, trace) -> None:
+    """ZKL_PREFLIGHT=console|json (prove.rs:128-136, read at call time):
+    the row-wise constraint check with the exact prover AIR before the
+    segment is proved; raises ProveError on a violation.  The serial loop
+    and the wave prover both run it."""
+    pf_mode = os.environ.get("ZKL_PREFLIGHT", "off").lower()
+    if pf_mode in ("console", "json"):
+        from ..air.preflight import run_preflight
+        violations = run_preflight(air, trace)
+        if violations:
+            raise ProveError(f"preflight violations: {violations[:3]}")
 
 
 def _boundary_dict(boundaries, state_in_hash, state_out_hash) -> dict:

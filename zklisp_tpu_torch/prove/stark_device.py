@@ -37,6 +37,13 @@ Memory: the (w, N, 8) int32 trace LDE is the only full-size resident.
 The plain limb ops widen to int64 and form 16-column products, so the
 NTT runs in column chunks sized from their transient bytes and leaf
 hashing in row chunks.
+
+The stages below also take S segments at once, stacked on a leading
+axis (the wave prover, parallel/mesh_prover.py): the Merkle trees of a
+wave are built as one forest, every FRI layer folds and commits all S,
+the DEEP inverse is one product tree, boundary groups come per segment.
+`prove_trace` calls them with one segment.  A wave sizes its chunks from
+the memory free on the card (`stage_budget`).
 """
 
 from __future__ import annotations
@@ -72,6 +79,9 @@ LDE_CHUNK_BYTES = 2 << 30    # transient bytes of one NTT column batch
 # product columns, about a dozen temporaries of that size live at once in
 # `limb._reduce_cols`, plus the four int32 digit-plane products
 LDE_BYTES_PER_POINT = 1536
+# the share of the card's free memory a wave stage's transients may take
+# (the same share `parallel.mesh_prover.default_wave_width` sizes waves by)
+WAVE_MEMORY_SHARE = 0.4
 DEEP_ROW_CHUNK = 1 << 14     # rows per DEEP dot (limb-dot form)
 GROUP_CHUNK = 32             # boundary groups per batched term
 
@@ -86,15 +96,38 @@ def _to_host_ints(t) -> List[int]:
 # LDE
 # ---------------------------------------------------------------------------
 
+def stage_budget(device) -> int:
+    """Transient bytes one stage of a wave may take: WAVE_MEMORY_SHARE of
+    the card's memory that is free now (what `torch.cuda.mem_get_info`
+    reports free plus what PyTorch's allocator holds unused), read at
+    call time.  On the CPU an
+    eighth of LDE_CHUNK_BYTES: there the plain ops have no launches to
+    share, and they run slower per element on temporaries of gigabytes."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return LDE_CHUNK_BYTES // 8
+    free, _ = torch.cuda.mem_get_info(dev)
+    cached = (torch.cuda.memory_reserved(dev)
+              - torch.cuda.memory_allocated(dev))
+    return int(WAVE_MEMORY_SHARE * (free + cached))
+
+
+def col_chunk_for(n_cols: int, bytes_per_col: int, budget: int) -> int:
+    """How many of `n_cols` columns keep a chunk's transients of
+    `bytes_per_col` each within `budget` (at least one)."""
+    return max(1, min(n_cols, budget // max(bytes_per_col, 1)))
+
+
 def lde_columns(cols, blowup: int, col_chunk: int | None = None):
     """(C, n, 8) trace columns -> (polys (C, n, 8), lde (C, N, 8)),
     `col_chunk` columns at a time (default: as many as keep the int64
     product transients under LDE_CHUNK_BYTES); results are written in
-    place into preallocated outputs."""
+    place into preallocated outputs.  A wave passes its S * w columns
+    flattened, with a chunk from `stage_budget`."""
     C, n = cols.shape[0], cols.shape[1]
     if col_chunk is None:
-        col_chunk = max(1, LDE_CHUNK_BYTES
-                        // (n * blowup * LDE_BYTES_PER_POINT))
+        col_chunk = col_chunk_for(C, n * blowup * LDE_BYTES_PER_POINT,
+                                  LDE_CHUNK_BYTES)
     polys = torch.empty_like(cols)
     lde = torch.empty((C, n * blowup, limb.NLIMB), dtype=cols.dtype,
                       device=cols.device)
@@ -110,18 +143,25 @@ def lde_columns(cols, blowup: int, col_chunk: int | None = None):
 # ---------------------------------------------------------------------------
 
 class _DevCommitment:
-    """Merkle commitment whose levels stay on the device.
+    """Merkle commitment whose levels stay on the device: one tree, or
+    the S trees of a wave laid end to end (`kernels.commit_cols`).
 
-    Only the root crosses to the host at commit time (needed for FS
-    reseeding; the copy blocks until the tree is built) unless the
-    caller hands it in (the FRI chain reads all its roots in one copy);
-    sibling paths are gathered on the device and transferred in one
-    small copy (`open_paths_multi`)."""
+    Levels are kept flat, (S * m, 8): a sibling path of leaf p of tree t
+    is the path of leaf t * m + p (`open_paths_multi`).  Only the roots
+    cross to the host at commit time (needed for FS reseeding; the copy
+    blocks until the trees are built) unless the caller hands them in
+    (the FRI chain reads all its roots in one copy); sibling paths are
+    gathered on the device and transferred in one small copy."""
 
-    def __init__(self, levels, root_fe: int | None = None) -> None:
-        self.levels = levels                     # tensors, (m, 8)
-        self.root_fe = (int(limb.to_ints(levels[-1])[0])
-                        if root_fe is None else root_fe)
+    def __init__(self, levels, roots_fe: List[int] | None = None) -> None:
+        self.levels = [lv.reshape(-1, limb.NLIMB) for lv in levels]
+        self.roots_fe = (_to_host_ints(self.levels[-1])
+                         if roots_fe is None else list(roots_fe))
+
+    @property
+    def root_fe(self) -> int:
+        assert len(self.roots_fe) == 1, "a wave commitment has S roots"
+        return self.roots_fe[0]
 
     @property
     def root(self) -> bytes:
@@ -131,7 +171,9 @@ class _DevCommitment:
 def open_paths_multi(comms: List[_DevCommitment],
                      positions_per_comm) -> List[List[List[bytes]]]:
     """Sibling paths (bottom-up) for the given leaf indices of several
-    commitments: all gathers on the device, ONE transfer."""
+    commitments: all gathers on the device, ONE transfer.  A wave
+    commitment takes the leaf indices of all its trees at once, tree t's
+    offset by t * (leaves per tree)."""
     parts = []
     for c, ps in zip(comms, positions_per_comm):
         cur = torch.tensor(list(ps), dtype=torch.int64,
@@ -153,14 +195,20 @@ def open_paths_multi(comms: List[_DevCommitment],
     return out
 
 
-def gather_rows(cols_arr, idx):
-    """(C, N, 8) column-major, idx (nq,) -> (nq, C, 8) opened rows."""
-    return cols_arr[:, idx].transpose(0, 1)
+def gather_rows(cols_arr, idx, seg=None):
+    """(C, N, 8) column-major, idx (nq,) -> (nq, C, 8) opened rows; or
+    (S, C, N, 8) with `seg` (nq,): row idx[j] of segment seg[j]."""
+    if seg is None:
+        return cols_arr[:, idx].transpose(0, 1)
+    return cols_arr[seg, :, idx]
 
 
 def fri_vals(layers, idxs):
-    """[layer_d[idxs_d]] concatenated: (sum(len(idxs_d)), 8)."""
-    return torch.cat([layer[ix] for layer, ix in zip(layers, idxs)])
+    """[layer_d[idxs_d]] concatenated: (sum(len(idxs_d)), 8).  A wave's
+    layers (S, size, 8) take flat indices, segment t's offset by
+    t * size."""
+    return torch.cat([layer.reshape(-1, limb.NLIMB)[ix]
+                      for layer, ix in zip(layers, idxs)])
 
 
 # ---------------------------------------------------------------------------
@@ -259,50 +307,108 @@ def _host_tables(air: ZkLispAir, groups, blowup: int, device):
     return out
 
 
-def quotient_comp(comb, lde, cyc_idx, cyc_vals, cyc_divp, cyc_betas,
-                  sgl_idx, sgl_vals, sgl_div, sgl_betas, zinv):
-    """Boundary terms + zerofier apply: comb -> comp (N_c, 8).
+def boundary_groups(groups_l, betas_l, tables_l, device):
+    """The boundary groups of S segments as `quotient_comp` takes them:
+    (cyc_idx, cyc_vals, cyc_divp, cyc_betas, sgl_idx, sgl_vals, sgl_div,
+    sgl_betas), each with a leading segment axis, every segment's groups
+    padded to the wave's largest count with zeros (beta = 0).  Per
+    segment: its groups, its betas (one per group) and its
+    `_host_tables`.  Segments of one wave may differ here (segment 0
+    carries the pc_init binding); the tables' layout parts do not."""
+    S = len(groups_l)
+    dperiod = tables_l[0][7]
+    n_c = tables_l[0][1].shape[0]
+    out = []
+    for pos_i, div_i, tail in ((3, 4, (dperiod,)), (5, 6, (n_c,))):
+        G = max(len(t[pos_i]) for t in tables_l)
+        idx = _np.zeros((S, G), _np.int64)
+        vals = _np.zeros((S, G, limb.NLIMB), _np.uint32)
+        betas = _np.zeros((S, G, limb.NLIMB), _np.uint32)
+        div = limb.zeros((S, G) + tail, device)
+        for si, (groups, bet, t) in enumerate(zip(groups_l, betas_l,
+                                                  tables_l)):
+            pos = t[pos_i]
+            if not pos:
+                continue
+            k = len(pos)
+            idx[si, :k] = [groups[i].column for i in pos]
+            vals[si, :k] = _lh.from_ints([groups[i].value for i in pos])
+            betas[si, :k] = _lh.from_ints([bet[i] for i in pos])
+            div[si, :k] = t[div_i]
+        out += [torch.from_numpy(idx).to(device),
+                limb.from_numpy(vals, device), div,
+                limb.from_numpy(betas, device)]
+    return tuple(out)
 
-    Boundary groups are evaluated GROUP_CHUNK at a time and summed with
-    one reduction per chunk; field addition is exact mod p, so the sum
-    equals the group-by-group accumulation bit for bit."""
-    N = comb.shape[0]
+
+def quotient_comp(comb, lde, cyc_idx, cyc_vals, cyc_divp, cyc_betas,
+                  sgl_idx, sgl_vals, sgl_div, sgl_betas, zinv,
+                  group_chunk: int = GROUP_CHUNK):
+    """Boundary terms + zerofier apply: comb (S, N_c, 8) -> comp
+    (S, N_c, 8) for the S segments of a wave (S = 1 for one segment).
+
+    lde (S, w, N_c, 8); per segment its boundary groups, padded to one
+    count over the wave: cyc_idx (S, G) columns, cyc_vals (S, G, 8),
+    cyc_divp (S, G, dperiod, 8), cyc_betas (S, G, 8), and the singles
+    likewise with full-length divisors (S, G', N_c, 8).  A pad slot has
+    beta = 0 (and a zero divisor), so it adds 0.  Groups are evaluated
+    `group_chunk` at a time and summed with one reduction per chunk;
+    field addition is exact mod p, so the sum equals the group-by-group
+    accumulation bit for bit."""
+    S, N = comb.shape[0], comb.shape[1]
+    seg = torch.arange(S, device=comb.device)[:, None]
     comp = limb.mul(comb, zinv)
-    if len(cyc_idx):
-        dperiod = cyc_divp.shape[1]
+    if cyc_idx.shape[1]:
+        dperiod = cyc_divp.shape[2]
         # fold beta into the (tiny) periodic divisor table first
-        divp_b = limb.mul(cyc_divp, cyc_betas[:, None])
-        for s in range(0, len(cyc_idx), GROUP_CHUNK):
-            e = s + GROUP_CHUNK
-            numer = limb.sub(lde[cyc_idx[s:e]], cyc_vals[s:e, None])
-            resh = numer.reshape(-1, N // dperiod, dperiod, limb.NLIMB)
-            term = limb.mul(resh, divp_b[s:e, None])
+        divp_b = limb.mul(cyc_divp, cyc_betas[:, :, None])
+        for s in range(0, cyc_idx.shape[1], group_chunk):
+            e = s + group_chunk
+            numer = limb.sub(lde[seg, cyc_idx[:, s:e]],
+                             cyc_vals[:, s:e, None])
+            resh = numer.reshape(S, -1, N // dperiod, dperiod, limb.NLIMB)
+            term = limb.mul(resh, divp_b[:, s:e, None])
             comp = limb.add(comp, limb.sum_mod(
-                term.reshape(-1, N, limb.NLIMB), 0))
-    if len(sgl_idx):
-        for s in range(0, len(sgl_idx), GROUP_CHUNK):
-            e = s + GROUP_CHUNK
-            numer = limb.sub(lde[sgl_idx[s:e]], sgl_vals[s:e, None])
-            term = limb.mul(limb.mul(numer, sgl_div[s:e]),
-                            sgl_betas[s:e, None])
-            comp = limb.add(comp, limb.sum_mod(term, 0))
+                term.reshape(S, -1, N, limb.NLIMB), 1))
+    if sgl_idx.shape[1]:
+        for s in range(0, sgl_idx.shape[1], group_chunk):
+            e = s + group_chunk
+            numer = limb.sub(lde[seg, sgl_idx[:, s:e]],
+                             sgl_vals[:, s:e, None])
+            term = limb.mul(limb.mul(numer, sgl_div[:, s:e]),
+                            sgl_betas[:, s:e, None])
+            comp = limb.add(comp, limb.sum_mod(term, 1))
     return comp
 
 
-def quotient_finish(comp, n: int, blowup: int, Q: int):
-    """comp (N_c, 8) -> (q_polys (Q, n, 8), q_lde (Q, N, 8))."""
+def quotient_finish(comp, n: int, blowup: int, Q: int,
+                    col_chunk: int | None = None):
+    """comp (..., N_c, 8) -> (q_polys (..., Q, n, 8), q_lde
+    (..., Q, N, 8)); the re-LDE runs `col_chunk` of the columns at a
+    time (default: all)."""
+    lead = comp.shape[:-2]
     coeffs = ntt.coset_interpolate(comp)
-    q_polys = coeffs[:Q * n].reshape(Q, n, limb.NLIMB)
-    return q_polys, ntt.coset_evaluate(q_polys, blowup)
+    q_polys = coeffs[..., :Q * n, :].reshape(-1, n, limb.NLIMB)
+    col_chunk = col_chunk or q_polys.shape[0]
+    q_lde = torch.cat([ntt.coset_evaluate(q_polys[s:s + col_chunk], blowup)
+                       for s in range(0, q_polys.shape[0], col_chunk)])
+    return (q_polys.reshape(lead + (Q, n, limb.NLIMB)),
+            q_lde.reshape(lead + (Q, n * blowup, limb.NLIMB)))
 
 
 # ---------------------------------------------------------------------------
 # OOD, DEEP, FRI
 # ---------------------------------------------------------------------------
 
-def ood_evals(polys, zpow):
-    """polys (C, n, 8), zpow (n, 8) -> [P_c(z)] as (C, 8)."""
-    return limb.sum_mod(limb.mul(polys, zpow[None]), 1)
+def ood_evals(polys, zpow, col_chunk: int | None = None):
+    """polys (..., C, n, 8), zpow (..., n, 8) -> [P_c(z)] as (..., C, 8),
+    `col_chunk` columns at a time (default: all)."""
+    C = polys.shape[-3]
+    col_chunk = col_chunk or C
+    zp = zpow[..., None, :, :]
+    return torch.cat([limb.sum_mod(limb.mul(polys[..., s:s + col_chunk, :, :],
+                                            zp), -2)
+                      for s in range(0, C, col_chunk)], dim=-2)
 
 
 def _lde_xs(n: int, blowup: int, device):
@@ -315,12 +421,15 @@ def _lde_xs(n: int, blowup: int, device):
 
 
 def deep_inv(xs, z, zg):
-    """(1/(x-z), 1/(x-zg)) over the domain via a product-tree batch
-    inverse."""
+    """(1/(x-z), 1/(x-zg)) over the domain via ONE product-tree batch
+    inverse along the domain: xs (N, 8), z and zg (..., 8) (one point per
+    segment of a wave) -> two (..., N, 8)."""
     N = xs.shape[0]
-    d = torch.cat([limb.sub(xs, z[None]), limb.sub(xs, zg[None])])
+    xs_b = xs.reshape((N,) + (1,) * (z.dim() - 1) + (limb.NLIMB,))
+    d = torch.stack([limb.sub(xs_b, z[None]), limb.sub(xs_b, zg[None])],
+                    dim=1)                                # (N, 2, ..., 8)
     iv = limb.batch_inv_tree(d)
-    return iv[:N], iv[N:]
+    return iv[:, 0].movedim(0, -2), iv[:, 1].movedim(0, -2)
 
 
 def deep_chunk(lde_blk, q_blk, coeffs, gz, gzg, inv_xz_blk, inv_xzg_blk):
@@ -341,24 +450,31 @@ def deep_planes(coeffs: List[int], device):
         device)
 
 
-def deep_mxu(trace_lde, q_lde, wt, gz, gzg, inv_xz, inv_xzg):
-    """Whole-domain DEEP composition: the coefficient dot
-    gt[x] = sum_i c_i * col_i[x] is one (N, (w+Q)*8) x ((w+Q)*8, 16)
-    digit-plane matrix product (field/mxu.py) instead of a limb dot that
-    materializes (N, w+Q, 8, 8) products."""
-    allc = torch.cat([trace_lde, q_lde])                 # (w+Q, N, 8)
-    gt = mxu.field_matmul(allc.transpose(0, 1), wt)[:, 0]
-    del allc
-    t1 = limb.mul(limb.sub(gt, gz[None]), inv_xz)
-    t2 = limb.mul(limb.sub(gt, gzg[None]), inv_xzg)
+def deep_mxu(trace_lde, q_lde, wts, gz, gzg, inv_xz, inv_xzg):
+    """Whole-domain DEEP composition of S segments: trace_lde
+    (S, w, N, 8), q_lde (S, Q, N, 8), wts the S segments' coefficient
+    planes, gz/gzg (S, 8), inv_xz/inv_xzg (S, N, 8) -> (S, N, 8).  Per
+    segment, the coefficient dot gt[x] = sum_i c_i * col_i[x] is one
+    (N, (w+Q)*8) x ((w+Q)*8, 16) digit-plane matrix product (field/mxu.py)
+    instead of a limb dot that materializes (N, w+Q, 8, 8) products; the
+    rest runs once over the wave."""
+    gts = []
+    for t_s, q_s, wt in zip(trace_lde, q_lde, wts):
+        allc = torch.cat([t_s, q_s])                     # (w+Q, N, 8)
+        gts.append(mxu.field_matmul(allc.transpose(0, 1), wt)[:, 0])
+        del allc
+    gt = torch.stack(gts)
+    t1 = limb.mul(limb.sub(gt, gz[:, None]), inv_xz)
+    t2 = limb.mul(limb.sub(gt, gzg[:, None]), inv_xzg)
     return limb.add(t1, t2)
 
 
 def fri_fold(layer, alpha, x0, inv_2x0):
-    half = layer.shape[0] // 2
-    a_f = alpha[None]
-    num1 = limb.mul(layer[:half], limb.add(a_f, x0))
-    num2 = limb.mul(layer[half:], limb.sub(a_f, x0))
+    """layer (..., size, 8), alpha (..., 8) -> (..., size/2, 8)."""
+    half = layer.shape[-2] // 2
+    a_f = alpha[..., None, :]
+    num1 = limb.mul(layer[..., :half, :], limb.add(a_f, x0))
+    num2 = limb.mul(layer[..., half:, :], limb.sub(a_f, x0))
     return limb.mul(limb.sub(num1, num2), inv_2x0)
 
 
@@ -386,18 +502,28 @@ def _x0_tables(size: int, device):
 
 
 def _fri_pairs_commit(layer):
-    """Tree levels over the (half, 2) pair rows of one FRI layer."""
-    half = layer.shape[0] // 2
-    return kernels.commit_rows(
-        torch.stack([layer[:half], layer[half:]], dim=1), 2)
+    """Tree levels over the (half, 2) pair rows of one FRI layer, or of
+    the S layers (S, size, 8) of a wave as S trees."""
+    S = layer.reshape(-1, layer.shape[-2], limb.NLIMB).shape[0]
+    half = layer.shape[-2] // 2
+    rows = torch.stack([layer[..., :half, :], layer[..., half:, :]],
+                       dim=-2)
+    return kernels.commit_rows(rows.reshape(-1, 2, limb.NLIMB), 2, S)
 
 
-def fri_layers_loop(deep, coin: RandomCoin, num_layers: int):
+def _coin_list(coins) -> List[RandomCoin]:
+    return [coins] if isinstance(coins, RandomCoin) else list(coins)
+
+
+def fri_layers_loop(deep, coins, num_layers: int):
     """FRI commit phase, one layer at a time with the host coin: commit,
-    read the root back (blocking), reseed, draw alpha, fold.  Returns
-    (commitments, layers, final layer); `coin` ends reseeded with every
-    root."""
+    read the root back (blocking), reseed, draw alpha, fold.  `deep` is
+    one segment's (N, 8) with its coin, or a wave's (S, N, 8) with a list
+    of S coins (each layer then commits S trees and reads S roots in one
+    copy).  Returns (commitments, layers, final layer); every coin ends
+    reseeded with its roots."""
     dev = deep.device
+    coins_l = _coin_list(coins)
     comms: List[_DevCommitment] = []
     layers = []
     layer = deep
@@ -405,45 +531,56 @@ def fri_layers_loop(deep, coin: RandomCoin, num_layers: int):
         comm = _DevCommitment(_fri_pairs_commit(layer))
         comms.append(comm)
         layers.append(layer)                  # full layers stay on device
-        coin.reseed(comm.root)
-        alpha = limb.from_ints([coin.draw()], dev)[0]
-        layer = fri_fold(layer, alpha, *_x0_tables(layer.shape[0], dev))
+        alphas = []
+        for coin, r in zip(coins_l, comm.roots_fe):
+            coin.reseed(f128.fe_to_bytes_fold(r))
+            alphas.append(coin.draw())
+        alpha = limb.from_ints(alphas, dev).reshape(deep.shape[:-2]
+                                                    + (limb.NLIMB,))
+        layer = fri_fold(layer, alpha, *_x0_tables(layer.shape[-2], dev))
     return comms, layers, layer
 
 
-def fri_layers_chain(deep, coin: RandomCoin, num_layers: int):
-    """The same phase with the coin on the device, so the host never
+def fri_layers_chain(deep, coins, num_layers: int):
+    """The same phase with the coins on the device, so the host never
     waits inside the loop: reseed = sponge(seed_fe, root_fe) under
     zkl/winter/hash/merge, draw = sponge(seed_fe, 1) under
-    zkl/winter/hash/merge_with_int.  A drawn candidate IS the digest's
-    lane-0 field element, always canonical, so the host coin's retry
-    loop can never trigger and the device draw is exact.  All roots come
-    back in ONE copy at the end; the host coin then replays the reseeds
-    (draws do not mutate the seed, so the alphas need no replay).  Same
-    returns and same final coin state as `fri_layers_loop`."""
+    zkl/winter/hash/merge_with_int, for every segment's seed at once.  A
+    drawn candidate IS the digest's lane-0 field element, always
+    canonical, so the host coin's retry loop can never trigger and the
+    device draw is exact.  All roots come back in ONE copy at the end;
+    the host coins then replay the reseeds (draws do not mutate the
+    seed, so the alphas need no replay).  Same arguments, returns and
+    final coin states as `fri_layers_loop`."""
     dev = deep.device
-    seed = limb.from_ints([f128.fold_bytes32_to_fe(coin.seed)], dev)[0]
-    one = limb.from_ints([1], dev)[0]
+    coins_l = _coin_list(coins)
+    S = len(coins_l)
+    seed = limb.from_ints([f128.fold_bytes32_to_fe(c.seed) for c in coins_l],
+                          dev)                                  # (S, 8)
+    one = limb.from_ints([1] * S, dev)
     levels_all, layers, roots = [], [], []
     layer = deep
     for _ in range(num_layers):
         levels = _fri_pairs_commit(layer)
-        root = levels[-1][0]                                  # (8,)
-        seed = pt.sponge_fes(torch.stack([seed, root])[None],
-                             b"zkl/winter/hash/merge")[0]
-        alpha = pt.sponge_fes(torch.stack([seed, one])[None],
-                              b"zkl/winter/hash/merge_with_int")[0]
+        root = levels[-1]                                       # (S, 8)
+        seed = pt.sponge_fes(torch.stack([seed, root], dim=1),
+                             b"zkl/winter/hash/merge")
+        alpha = pt.sponge_fes(torch.stack([seed, one], dim=1),
+                              b"zkl/winter/hash/merge_with_int")
         levels_all.append(levels)
         layers.append(layer)
         roots.append(root)
-        layer = fri_fold(layer, alpha, *_x0_tables(layer.shape[0], dev))
+        layer = fri_fold(layer, alpha.reshape(deep.shape[:-2]
+                                              + (limb.NLIMB,)),
+                         *_x0_tables(layer.shape[-2], dev))
     comms = []
     if roots:
-        root_ints = limb.to_ints(torch.stack(roots))
+        root_ints = limb.to_ints(torch.stack(roots))            # (L, S)
         for levels, r in zip(levels_all, root_ints):
-            comm = _DevCommitment(levels, root_fe=int(r))
+            comm = _DevCommitment(levels, roots_fe=[int(v) for v in r])
             comms.append(comm)
-            coin.reseed(comm.root)
+            for coin, v in zip(coins_l, comm.roots_fe):
+                coin.reseed(f128.fe_to_bytes_fold(v))
     return comms, layers, layer
 
 
@@ -466,6 +603,9 @@ def prove_trace(trace, air: ZkLispAir, air_pi, options: ProofOptions,
 
     def fe(v: int):
         return limb.from_ints([v], dev)[0]
+
+    def index(ints):
+        return torch.tensor(ints, dtype=torch.int64, device=dev)
 
     # stage 1: trace polys + LDE
     with phase("lde", dev, rows=n, width=w):
@@ -496,10 +636,8 @@ def prove_trace(trace, air: ZkLispAir, air_pi, options: ProofOptions,
                    else trace_lde[:, ::stride_c].contiguous())
     n_c = n * blowup_c
     with phase("host_tables", dev):
-        (per_p, p_last, zinv, cyc_pos, cyc_divp, sgl_pos, sgl_div,
-         dperiod) = _host_tables(air, groups, blowup_c, dev)
-    cyc = [groups[i] for i in cyc_pos]
-    sgl = [groups[i] for i in sgl_pos]
+        tables = _host_tables(air, groups, blowup_c, dev)
+    per_p, p_last, zinv = tables[:3]
     alphas_dev = limb.from_ints(alphas, dev)
 
     # stage 3: composition = scan blocks + bytecode VM
@@ -516,20 +654,10 @@ def prove_trace(trace, air: ZkLispAir, air_pi, options: ProofOptions,
             comb = acc_gen if comb is None else limb.add(comb, acc_gen)
 
     # boundary + quotient
-    def vals(ints):
-        return (limb.from_ints(ints, dev) if ints
-                else limb.zeros((0,), dev))
-
-    def index(ints):
-        return torch.tensor(ints, dtype=torch.int64, device=dev)
-
     with phase("quotient", dev):
         comp = quotient_comp(
-            comb, trace_lde_c,
-            index([g.column for g in cyc]), vals([g.value for g in cyc]),
-            cyc_divp, vals([betas[i] for i in cyc_pos]),
-            index([g.column for g in sgl]), vals([g.value for g in sgl]),
-            sgl_div, vals([betas[i] for i in sgl_pos]), zinv)
+            comb[None], trace_lde_c[None],
+            *boundary_groups([groups], [betas], [tables], dev), zinv)[0]
         assert comp.shape[0] == n_c
         q_polys, q_lde = quotient_finish(comp, n, blowup, Q)
         del comp, comb, trace_lde_c
@@ -565,9 +693,10 @@ def prove_trace(trace, air: ZkLispAir, air_pi, options: ProofOptions,
         inv_xz, inv_xzg = deep_inv(_lde_xs(n, blowup, dev), fe(z), fe(zg))
         gz_dev, gzg_dev = fe(gz), fe(gzg)
         if not os.environ.get("ZKL_NO_MXU_DEEP"):
-            deep = deep_mxu(trace_lde, q_lde,
-                            deep_planes(gammas + deltas, dev),
-                            gz_dev, gzg_dev, inv_xz, inv_xzg)
+            deep = deep_mxu(trace_lde[None], q_lde[None],
+                            [deep_planes(gammas + deltas, dev)],
+                            gz_dev[None], gzg_dev[None], inv_xz[None],
+                            inv_xzg[None])[0]
         else:
             coeffs = limb.from_ints(gammas + deltas, dev)
             chunk = min(DEEP_ROW_CHUNK, N)

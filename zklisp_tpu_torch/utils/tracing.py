@@ -2,9 +2,14 @@
 
 `phase(name, device=...)` times a block on the host clock; when the
 device is a CUDA card it calls `torch.cuda.synchronize()` at the phase's
-end, so the time covers the device work the phase queued.  Totals
-accumulate per name (`summary()`, `reset()`), which is how a caller
-prints a per-phase split of a proving run.
+end, so the time covers the device work the phase queued, and records
+the card's peak allocated bytes so far.  Totals accumulate per name
+(`summary()`, `reset()`), and every phase is also logged in order with
+its fields (`events()`), which is how a caller prints a per-phase split
+of a proving run, per wave or per segment.  Phases may end in several
+threads (the wave prover's host assembly runs in a worker).  Each phase
+is also a `torch.profiler.record_function` range named "phase:<name>",
+so a profiler trace can be cut by phase.
 
 Logging: ZKL_LOG=debug|info or configure(); phases log their wall-clock
 on exit at debug level.
@@ -14,6 +19,7 @@ from __future__ import annotations
 
 import logging
 import os
+import threading
 import time
 from contextlib import contextmanager
 
@@ -21,7 +27,9 @@ import torch
 
 logger = logging.getLogger("zklisp_tpu_torch")
 
+_LOCK = threading.Lock()
 _TOTALS: dict = {}
+_EVENTS: list = []
 
 
 def configure(level: str | None = None) -> None:
@@ -42,27 +50,43 @@ configure()
 
 
 def reset() -> None:
-    """Forget the accumulated per-phase totals."""
-    _TOTALS.clear()
+    """Forget the accumulated per-phase totals and the phase log."""
+    with _LOCK:
+        _TOTALS.clear()
+        _EVENTS.clear()
 
 
 def summary() -> dict:
     """{phase name: accumulated seconds} since the last reset()."""
-    return dict(_TOTALS)
+    with _LOCK:
+        return dict(_TOTALS)
+
+
+def events() -> list:
+    """[(phase name, seconds, fields)] in the order the phases ended,
+    since the last reset(); a CUDA phase's fields hold `peak_bytes`."""
+    with _LOCK:
+        return list(_EVENTS)
 
 
 @contextmanager
 def phase(name: str, device=None, **fields):
     """Timed phase context; synchronizes a CUDA `device` at its end."""
     t0 = time.time()
-    try:
-        yield
-    finally:
-        if device is not None and torch.device(device).type == "cuda":
-            torch.cuda.synchronize()
-        dt = time.time() - t0
-        _TOTALS[name] = _TOTALS.get(name, 0.0) + dt
-        if logger.isEnabledFor(logging.DEBUG):
-            extra = " ".join(f"{k}={v}" for k, v in fields.items())
-            logger.debug("%s done elapsed_ms=%d %s", name, int(dt * 1000),
-                         extra)
+    with torch.profiler.record_function("phase:" + name):
+        try:
+            yield
+        finally:
+            cuda = device is not None and torch.device(device).type == "cuda"
+            if cuda:
+                torch.cuda.synchronize()
+                fields = dict(fields,
+                              peak_bytes=torch.cuda.max_memory_allocated())
+            dt = time.time() - t0
+            with _LOCK:
+                _TOTALS[name] = _TOTALS.get(name, 0.0) + dt
+                _EVENTS.append((name, dt, fields))
+            if logger.isEnabledFor(logging.DEBUG):
+                extra = " ".join(f"{k}={v}" for k, v in fields.items())
+                logger.debug("%s done elapsed_ms=%d %s", name,
+                             int(dt * 1000), extra)
