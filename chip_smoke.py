@@ -56,6 +56,22 @@ Each phase prints one JSON object on a line of its own:
            aggregation trace built again on the card and on the CPU (the
            same tensor code with each kernel's plain version): equal,
            with both child-batch times; then the byte comparisons
+  stream   the streamed trace source (trace/stream.py), one line per
+           run, headed by the card's name and power limit: (a) the 16
+           segments with ZKL_STREAM_TRACE=1 through `agg.prove_chain`
+           (the serial loop, one segment's window and upload ahead):
+           the prove line's fields plus pass-1 seconds, per-segment
+           seconds, host RSS, the per-segment usage masks, and the
+           artifact's blake3 beside the wave's (they differ: streamed
+           segments carry their own usage masks, as in the JAX package);
+           (b) the first 2 segments streamed and from the full trace
+           (ZKL_WAVE=0), both with ZKL_UNIFORM_SEGMENTS=0: equal StepProof
+           bytes; (c) rollup-bench at BATCH 121 (16,330 ops, 2^19 rows,
+           128 segments) with no switch set: it must stream; the first 8
+           segments proved and verified, pass-1 seconds, peak device
+           memory and the growth of the current host RSS; (d) the
+           4-segment program with ZKL_WAVE=0, serial and with
+           max_concurrent_segments=2: equal StepProof bytes, both times
   cli      `python -m zklisp_tpu_torch.cli prove examples/hello-zk.zlisp`
            at 128 bits (the aggregation over the quadratic extension) in a
            subprocess on the card, `cli verify` of its artifact, and of the
@@ -74,8 +90,8 @@ non-zero exit code and no result line.  Without a CUDA card the script
 exits non-zero at once.
 
 Options (for development; the default run takes none):
-  --phases device,build,kernels,commit,prove,cli,shapes
-                    subset of phases (`shapes` needs `prove`)
+  --phases device,build,kernels,commit,prove,stream,cli,shapes
+                    subset of phases (`stream` and `shapes` need `prove`)
   --segments K      K = 2, 4 or 8: the rollup-bench program scaled to K
                     segments of 4096 rows (2^16 rows: 16), aggregated whole
   --profile         after phase `prove`, the default configuration's
@@ -83,7 +99,13 @@ Options (for development; the default run takes none):
                     busy seconds and idle share over the wave, kernel
                     launches per segment of each wave phase and of each
                     hand-written kernel
+  --stream-all      phase `stream` (c) proves all 128 segments of the
+                    2^19-row trace through `agg.prove_chain` and verifies
+                    the artifact; today `verify_agg` rejects it (an open
+                    fault of both packages, ROADMAP.md §3: the sorted-RAM
+                    chain breaks where a sorted event ends a segment)
 ZKL_WAVE=k in the environment sets the default configuration's wave width.
+verify_step runs in up to four worker processes (host work only).
 """
 
 from __future__ import annotations
@@ -91,9 +113,12 @@ from __future__ import annotations
 import argparse
 import collections
 import concurrent.futures
+import dataclasses
 import json
+import multiprocessing
 import os
 import re
+import resource
 import shutil
 import subprocess
 import sys
@@ -125,7 +150,7 @@ from zklisp_tpu_torch.prove import stark_device              # noqa: E402
 DEV = torch.device("cuda")
 P = f128.P
 ROUNDS = 27
-ALL_PHASES = "device,build,kernels,commit,prove,cli,shapes"
+ALL_PHASES = "device,build,kernels,commit,prove,stream,cli,shapes"
 SEGMENTS = 16          # of 4096 rows: the 2^16-row trace
 PLAIN_SLICE = 16384    # states per call of the plain version (its int64
                        # temporaries take ~75 KB per state)
@@ -160,6 +185,22 @@ EARLIER_ENV = {"ZKL_NO_MXU_NTT": "1", "ZKL_NO_MXU_DEEP": "1",
 SERIAL_CONFIGS = {"serial": {"ZKL_WAVE": "0"},
                   "earlier": dict(EARLIER_ENV, ZKL_WAVE="0")}
 SERIAL_SEGMENTS = 2
+# phase `stream` (b): the first SERIAL_SEGMENTS segments streamed and from
+# the full trace through the serial loop, per-segment masks in both
+SEGMENT_MASKS = {"ZKL_UNIFORM_SEGMENTS": "0"}
+BYTE_CHECK_CONFIGS = {
+    "stream_masks": dict(SEGMENT_MASKS, ZKL_STREAM_TRACE="1"),
+    "full_masks": dict(SEGMENT_MASKS, ZKL_STREAM_TRACE="0", ZKL_WAVE="0")}
+# every switch a configuration may set, cleared before each one
+SWITCHES = (*EARLIER_ENV, "ZKL_STREAM_TRACE", "ZKL_UNIFORM_SEGMENTS")
+# phase `stream` (c): rollup-bench at BATCH 121 is 16,330 ops, a 2^19-row
+# trace of 128 segments, which `prove_program` streams with no switch set;
+# the first THRESHOLD_FIRST are proved (all of them under --stream-all)
+THRESHOLD_BATCH = 121
+THRESHOLD_SEGMENTS = 128
+THRESHOLD_FIRST = 8
+CONCURRENT_SEGMENTS = 4        # phase `stream` (d): the 2^14-row program
+VERIFY_POOL = None             # worker processes for verify_step (main())
 
 
 def emit(obj) -> None:
@@ -749,22 +790,33 @@ def phase_commit():
         fail("kernel and plain commitments differ")
 
 
-def prove_setup(n_segments: int):
+def prove_setup(n_segments: int, batch: int | None = None):
     """Compile the rollup-bench program scaled to `n_segments` segments
-    of 4096 rows once for both runs."""
+    of 4096 rows once for all runs: the largest BATCH that fits, or the
+    given `batch`, checked to fit (at most 128 ops per segment, and
+    `n_segments` segments planned)."""
     from zklisp_tpu_torch import workload
     from zklisp_tpu_torch.compiler import compile_entry
     from zklisp_tpu_torch.core.pi import PublicInputsBuilder
+    from zklisp_tpu_torch.prove import planner
     from zklisp_tpu_torch.prove.params import ProverOptions
 
     t0 = time.time()
-    src, batch, n_ops = workload.rollup_source(n_segments * 4096 // 32)
+    if batch is None:
+        src, batch, _ = workload.rollup_source(n_segments * 4096 // 32)
+    else:
+        src = workload.rollup_batch_source(batch)
     program = compile_entry(src, [])
     pi = PublicInputsBuilder(program).build()
     opts = ProverOptions(min_security_bits=0, blowup=16, grind=16,
                          queries=64)
+    n_ops = len(program.ops)
+    planned = len(planner.plan_segments(program, pi, opts))
+    if n_ops > n_segments * 4096 // 32 or planned != n_segments:
+        fail(f"rollup-bench at BATCH {batch}: {n_ops} ops, {planned} "
+             f"segments, not {n_segments}")
     return {"program": program, "pi": pi, "opts": opts, "batch": batch,
-            "ops": n_ops, "rows": n_segments * 4096,
+            "ops": n_ops, "rows": n_segments * 4096, "segment_rows": 4096,
             "compile_s": time.time() - t0}
 
 
@@ -847,33 +899,72 @@ def wave_split(events) -> list:
     return waves
 
 
-def phase_prove(setup, config: str, env: dict, smi_line: str):
-    """Drive one configuration (`env` = the switches to set; the four and
-    ZKL_WAVE=0 are cleared first, an outer ZKL_WAVE=k is kept for the
-    default one) with every kernel's count set to 0 just before and read
-    just after: the default one (the wave prover) through
-    `agg.prove_chain` over all segments, the serial ones through
-    `prove_program` over the first SERIAL_SEGMENTS.  Verify every
-    StepProof (and the artifact)."""
+def statm_rss() -> int:
+    """The process's current resident bytes (/proc/self/statm)."""
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+
+def maxrss() -> int:
+    """The process's peak resident bytes so far (ru_maxrss, in KiB)."""
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+
+
+def _verify_blob(blob: bytes) -> None:
+    """verify_step of one serialized StepProof (in a worker process)."""
+    from zklisp_tpu_torch.prove import formats, prover
+    prover.verify_step(formats.StepProof.from_bytes(blob))
+
+
+def verify_steps(steps, config: str) -> float:
+    """verify_step of every StepProof on the host, in VERIFY_POOL's worker
+    processes (each verification is pure Python); the seconds taken."""
+    t0 = time.time()
+    futs = [VERIFY_POOL.submit(_verify_blob, st.to_bytes()) for st in steps]
+    for i, f in enumerate(futs):
+        try:
+            f.result()
+        except Exception as e:                    # noqa: BLE001
+            fail(f"verify_step rejected segment {i} ({config}): {e!r}")
+    return time.time() - t0
+
+
+def phase_prove(setup, config: str, env: dict, smi_line: str,
+                chain: bool = False, first: int = SERIAL_SEGMENTS,
+                name: str = "prove"):
+    """Drive one configuration (`env` = the switches to set; SWITCHES and
+    ZKL_WAVE=0 are cleared first, an outer ZKL_WAVE=k is kept) with every
+    kernel's count set to 0 just before and read just after: through
+    `agg.prove_chain` over all segments (`chain`), else through
+    `prove_program` over the first `first`.  The host's current RSS is
+    read before the run and after the `first`-th (a chain: the last)
+    segment.  Verify every StepProof (and the artifact).  Configuration
+    `default` must prove through the wave, every other one through the
+    serial loop; the trace must stream (`stream_pass1` in the phase log)
+    exactly where `prover.stream_mode` says.  The line is headed `name`;
+    a rejected artifact fails the run after its line."""
     from zklisp_tpu_torch.agg import aggregate as agg
     from zklisp_tpu_torch.crypto.blake3 import blake3
     from zklisp_tpu_torch.prove import prover
     from zklisp_tpu_torch.utils import tracing
 
     outer_wave = os.environ.get("ZKL_WAVE")
-    for k in EARLIER_ENV:
+    for k in SWITCHES:
         os.environ.pop(k, None)
     if outer_wave == "0":
         os.environ.pop("ZKL_WAVE")
     os.environ.update(env)
-    chain = not env
+    want_stream = prover.stream_mode(setup["rows"])
+    if chain:
+        first = setup["rows"] // setup["segment_rows"]   # all of them
 
     seg_seconds, steps = [], []
-    steps_log_len = [0]       # poseidon12 launches when the step proofs
-                              # returned: the later ones are aggregation
+    steps_log_len = [0, 0]    # the kernels' logs when the step proofs
+                              # returned: the later launches are aggregation
     last = [time.time()]
     first_segment = {}        # per-phase seconds of segment 0, which pays
                               # for the tables, the allocator and the build
+    rss = {}
     real_segment = prover.prove_segment
     real_program = prover.prove_program
 
@@ -884,30 +975,35 @@ def phase_prove(setup, config: str, env: dict, smi_line: str):
         now = time.time()
         seg_seconds.append(now - last[0])
         last[0] = now
-        steps.append(out[0])
-        if len(steps) == 1:
+        if not chain:
+            steps.append(out[0])
+        if len(seg_seconds) == 1:
             first_segment.update(tracing.summary())
+        if len(seg_seconds) == first:
+            rss["after_segment"] = statm_rss()
         return out
 
     def recorded_program(*a, **k):
         """`prove_program` as `prove_chain` calls it (a module attribute
-        looked up at call time): its steps, and the kernel's batch log up
-        to its return."""
+        looked up at call time): its steps, and the kernels' logs up to
+        its return."""
         out = real_program(*a, **k)
         steps.extend(out)
-        steps_log_len[0] = len(poseidon_cuda.permute12.batch_log)
+        steps_log_len[:] = [len(poseidon_cuda.permute12.batch_log),
+                            len(dd.digit_dot.shape_log)]
         return out
 
     def stop_early(_batch):
-        return len(steps) >= SERIAL_SEGMENTS
+        return len(steps) >= first
 
     tracing.reset()
     torch.cuda.reset_peak_memory_stats()
+    rss_max_before = maxrss()
+    prover.prove_segment = timed_segment
     if chain:
         prover.prove_program = recorded_program
-    else:
-        prover.prove_segment = timed_segment
     counts_zero()
+    rss["start"] = statm_rss()
     t0 = last[0] = time.time()
     try:
         if chain:
@@ -916,7 +1012,8 @@ def phase_prove(setup, config: str, env: dict, smi_line: str):
         else:
             real_program(setup["program"], setup["pi"], setup["opts"],
                          on_steps=stop_early, device=DEV)
-            steps_log_len[0] = len(poseidon_cuda.permute12.batch_log)
+            steps_log_len[:] = [len(poseidon_cuda.permute12.batch_log),
+                                len(dd.digit_dot.shape_log)]
         torch.cuda.synchronize()
     finally:
         prover.prove_segment = real_segment
@@ -933,15 +1030,9 @@ def phase_prove(setup, config: str, env: dict, smi_line: str):
     n_total = steps[0].proof.pi.segments_total if steps else 0
     events = tracing.events()
 
-    t0 = time.time()
-    for i, step in enumerate(steps):
-        try:
-            prover.verify_step(step)
-        except Exception as e:                    # noqa: BLE001
-            fail(f"verify_step rejected segment {i} ({config}): {e!r}")
-    t_verify = time.time() - t0
-    if len(steps) < 2:
-        fail(f"fewer than 2 segments proved ({config})")
+    t_verify = verify_steps(steps, config)
+    if len(steps) < min(first, 2):
+        fail(f"fewer than {min(first, 2)} segments proved ({config})")
     if launches["poseidon12"] <= 0:
         fail(f"the {config} path launched the poseidon12 kernel no time")
     if chain and not agg_log:
@@ -952,27 +1043,34 @@ def phase_prove(setup, config: str, env: dict, smi_line: str):
     elif launches["digit_dot"] <= 0:
         fail(f"the {config} path launched the digit_dot kernel no time")
     waves = wave_split(events)
-    if chain and (not waves or sum(w["S"] for w in waves) < len(steps)):
+    if config == "default" and (
+            not waves or sum(w["S"] for w in waves) < len(steps)):
         fail("the default configuration did not prove through the wave")
-    if not chain and waves:
+    if config != "default" and waves:
         fail(f"the {config} configuration went through the wave")
+    pass1 = [dt for nm, dt, _ in events if nm == "stream_pass1"]
+    if bool(pass1) != want_stream:
+        fail(f"the {config} configuration streamed: {bool(pass1)}, "
+             f"prover.stream_mode says {want_stream}")
 
     out = {"steps": [st.to_bytes() for st in steps], "launches": launches,
            "batch_log": batch_log, "agg_log": agg_log,
            "shape_log": shape_log, "waves": waves}
-    rows = 4096 * len(steps)
+    rows = setup["segment_rows"] * len(steps)
     per_phase = {k: v for k, v in tracing.summary().items()
                  if k not in agg.AGG_PHASES}
     n = len(steps)
-    line = {"phase": "prove", "config": config, "switches": env,
+    line = {"phase": name, "config": config, "switches": env,
             "program": "examples/rollup-bench.zlisp",
             "batch": setup["batch"], "ops": setup["ops"],
             "trace_rows": setup["rows"],
             "segments_total": n_total, "segments_proved": n,
-            "all_segments": n == n_total, "segment_rows": 4096,
+            "all_segments": n == n_total,
+            "segment_rows": setup["segment_rows"],
             "width": steps[0].proof.inner.context.trace_width,
             "blowup": 16, "queries": 64, "grind": 16,
             "hasher_rounds": ROUNDS, "verified": True,
+            "streamed": bool(pass1),
             "compile_trace_s": setup["compile_s"],
             "prove_s": t_prove, "verify_s": t_verify,
             "rows_per_s": rows / (agg.LAST_CHAIN_TIMINGS["steps_s"]
@@ -980,9 +1078,20 @@ def phase_prove(setup, config: str, env: dict, smi_line: str):
             "peak_memory_bytes": peak, "launches": launches,
             "launches_per_segment": {
                 "poseidon12": len(batch_log) / n,
-                "digit_dot": launches["digit_dot"] / n},
+                "digit_dot": steps_log_len[1] / n},
             "states_per_segment": sum(batch_log) / n}
-    if chain:
+    if pass1:
+        line.update({
+            "stream_pass1_s": pass1[0],
+            "host_rss_bytes": {
+                "current_before_pass1": rss["start"],
+                f"current_after_segment_{first}": rss.get("after_segment"),
+                "current_growth": (rss.get("after_segment", 0)
+                                   - rss["start"]),
+                "peak_before": rss_max_before, "peak_after": maxrss()},
+            "vm_usage_masks": [[st.vm_usage_mask, st.ram_delta_clk_bits]
+                               for st in steps]})
+    if config == "default":
         line.update({"wave_width": max(w["S"] for w in waves),
                      "waves": len(waves), "per_wave": waves,
                      "per_phase_s": per_phase})
@@ -992,36 +1101,43 @@ def phase_prove(setup, config: str, env: dict, smi_line: str):
             "per_phase_s_first_segment": first_segment,
             "per_phase_s_later_segments_mean": {
                 k: (v - first_segment.get(k, 0.0)) / (n - 1)
-                for k, v in per_phase.items()}})
+                for k, v in per_phase.items()} if n > 1 else None})
     if chain:
-        if n != n_total or n != setup["rows"] // 4096:
+        if n != n_total or n != setup["rows"] // setup["segment_rows"]:
             fail(f"prove_chain proved {n} of {n_total} segments")
         blob = agg.encode_artifact(proof, agg_pi)
         t0 = time.time()
         proof2, pi2 = agg.decode_artifact(blob)
+        rejected = None
         try:
             agg.verify_agg(proof2, pi2)
         except Exception as e:                    # noqa: BLE001
-            fail(f"verify_agg rejected the artifact: {e!r}")
+            rejected = repr(e)
         t_verify_agg = time.time() - t0
         timings = dict(agg.LAST_CHAIN_TIMINGS)
+        out["blake3"] = blake3(blob).hex()
         line.update({
             "chain": timings,
             "aggregation_poseidon12": {
                 "launches": len(agg_log), "states": sum(agg_log),
                 "batches": dict(collections.Counter(agg_log))},
-            "child_batch_check": check_child_batch(agg, agg_pi, steps),
             "artifact_bytes": len(blob),
-            "artifact_blake3": blake3(blob).hex(),
+            "artifact_blake3": out["blake3"],
             "agg_trace_rows": proof.context.trace_len,
             "agg_queries": proof.context.options.num_queries,
             "agg_field_extension": proof.context.options.field_extension,
-            "verify_agg_s": t_verify_agg,
-            "seconds_to_verified_artifact": t_prove + t_verify_agg,
+            "verify_agg_s": t_verify_agg, "verify_agg_rejected": rejected,
+            "seconds_to_verified_artifact":
+                None if rejected else t_prove + t_verify_agg,
             "rows_per_s_to_verified_artifact":
-                rows / (t_prove + t_verify_agg)})
+                None if rejected else rows / (t_prove + t_verify_agg)})
+        if config == "default" and rejected is None:
+            line["child_batch_check"] = check_child_batch(agg, agg_pi,
+                                                          steps)
     print(smi_line, flush=True)
     emit(line)
+    if chain and rejected is not None:
+        fail(f"verify_agg rejected the artifact ({config}): {rejected}")
     return out
 
 
@@ -1121,7 +1237,7 @@ def phase_prove_all(n_segments: int, smi_line: str, profile: bool):
     serial ones on the first segments; each one's StepProof bytes must
     equal the wave's."""
     setup = prove_setup(n_segments)
-    new = phase_prove(setup, "default", {}, smi_line)
+    new = phase_prove(setup, "default", {}, smi_line, chain=True)
     if profile:
         profile_wave(setup, sum(w["total_s"] for w in new["waves"]),
                      smi_line)
@@ -1136,7 +1252,87 @@ def phase_prove_all(n_segments: int, smi_line: str, profile: bool):
         if both < SERIAL_SEGMENTS or not all(equal):
             fail(f"the wave's and the {config} configuration's StepProof "
                  f"bytes differ")
-    return new
+    return setup, new
+
+
+def compare_steps(what: str, a, b, n: int):
+    """Emit the comparison of two runs' first `n` StepProofs; fail unless
+    both have `n` and they are equal byte for byte."""
+    both = min(len(a), len(b), n)
+    equal = [a[i] == b[i] for i in range(both)]
+    emit({"phase": "stream", "compare": what, "segments": both,
+          "equal": equal, "bytes": [len(x) for x in a[:both]]})
+    if both < n or not all(equal):
+        fail(f"{what}: the StepProof bytes differ")
+
+
+def phase_concurrent(smi_line: str):
+    """(d) The 4-segment rollup-bench off the wave (ZKL_WAVE=0): the serial
+    loop, then `max_concurrent_segments=2` (segment 0 alone, the rest on
+    two threads, each segment on its own CUDA stream); equal StepProof
+    bytes, the concurrent ones verified.  The kernels' counts are neither
+    zeroed nor read here: two threads launch."""
+    from zklisp_tpu_torch.prove import prover
+
+    setup = prove_setup(CONCURRENT_SEGMENTS)
+    for k in SWITCHES:
+        os.environ.pop(k, None)
+    outer_wave = os.environ.get("ZKL_WAVE")
+    os.environ["ZKL_WAVE"] = "0"
+    seconds, runs = {}, {}
+    try:
+        for config, opts in (
+                ("serial", setup["opts"]),
+                ("concurrent", dataclasses.replace(
+                    setup["opts"], max_concurrent_segments=2))):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            runs[config] = prover.prove_program(
+                setup["program"], setup["pi"], opts, device=DEV)
+            torch.cuda.synchronize()
+            seconds[config] = time.time() - t0
+    finally:
+        if outer_wave is None:
+            os.environ.pop("ZKL_WAVE")
+        else:
+            os.environ["ZKL_WAVE"] = outer_wave
+    t_verify = verify_steps(runs["concurrent"], "concurrent")
+    print(smi_line, flush=True)
+    emit({"phase": "stream", "config": "concurrent",
+          "switches": {"ZKL_WAVE": "0"}, "max_concurrent_segments": 2,
+          "batch": setup["batch"], "ops": setup["ops"],
+          "trace_rows": setup["rows"], "segments": len(runs["serial"]),
+          "serial_s": seconds["serial"],
+          "concurrent_s": seconds["concurrent"],
+          "verify_concurrent_s": t_verify})
+    compare_steps("StepProof bytes, serial loop vs max_concurrent_"
+                  "segments=2", *[[st.to_bytes() for st in r]
+                                  for r in runs.values()],
+                  CONCURRENT_SEGMENTS)
+
+
+def phase_stream(setup, wave_blake3, smi_line: str, stream_all: bool):
+    """(a) the streamed chain at full width, (b) streamed vs full-trace
+    StepProof bytes with per-segment masks, (c) the 2^19-row program with
+    no switch set, (d) concurrent segments."""
+    a = phase_prove(setup, "stream", {"ZKL_STREAM_TRACE": "1"}, smi_line,
+                    chain=True, name="stream")
+    emit({"phase": "stream", "compare": "artifact blake3, streamed vs "
+          "the wave (streamed segments carry their own usage masks)",
+          "stream": a["blake3"], "wave": wave_blake3,
+          "equal": a["blake3"] == wave_blake3})
+
+    runs = {c: phase_prove(setup, c, env, smi_line, name="stream")
+            for c, env in BYTE_CHECK_CONFIGS.items()}
+    compare_steps("StepProof bytes, streamed vs full-trace serial loop, "
+                  "per-segment masks", *[r["steps"] for r in runs.values()],
+                  SERIAL_SEGMENTS)
+
+    big = prove_setup(THRESHOLD_SEGMENTS, batch=THRESHOLD_BATCH)
+    phase_prove(big, "threshold_all" if stream_all else "threshold", {},
+                smi_line, chain=stream_all, first=THRESHOLD_FIRST,
+                name="stream")
+    phase_concurrent(smi_line)
 
 
 def phase_cli(smi_line: str):
@@ -1228,10 +1424,23 @@ def main() -> None:
     ap.add_argument("--segments", type=int, default=SEGMENTS,
                     choices=[2, 4, 8, 16])
     ap.add_argument("--profile", action="store_true")
+    ap.add_argument("--stream-all", action="store_true")
     args = ap.parse_args()
     phases = args.phases.split(",")
-    if "shapes" in phases and "prove" not in phases:
-        ap.error("phase `shapes` needs phase `prove`")
+    for ph in ("shapes", "stream"):
+        if ph in phases and "prove" not in phases:
+            ap.error(f"phase `{ph}` needs phase `prove`")
+    global VERIFY_POOL
+    VERIFY_POOL = concurrent.futures.ProcessPoolExecutor(
+        max_workers=max(1, min(4, (os.cpu_count() or 2) // 2)),
+        mp_context=multiprocessing.get_context("spawn"))
+    try:
+        run_phases(args, phases)
+    finally:
+        VERIFY_POOL.shutdown(wait=True)
+
+
+def run_phases(args, phases) -> None:
 
     seconds = {}
     t0 = time.time()
@@ -1255,8 +1464,11 @@ def main() -> None:
         phase_commit()
         lap("commit")
     if "prove" in phases:
-        run = phase_prove_all(args.segments, smi_line, args.profile)
+        setup, run = phase_prove_all(args.segments, smi_line, args.profile)
         lap("prove")
+    if "stream" in phases:
+        phase_stream(setup, run["blake3"], smi_line, args.stream_all)
+        lap("stream")
     if "cli" in phases:
         phase_cli(smi_line)
         lap("cli")

@@ -155,48 +155,16 @@ def _pad_wave(preps: List[_SegPrep], wave_width: int) -> List[_SegPrep]:
     return list(preps) + [preps[-1]] * max(0, W - len(preps))
 
 
-class _Staged:
-    """A wave's (S, w, n, 8) trace columns on their way to the device."""
-
-    def __init__(self, cols, event=None, host=None) -> None:
-        self.cols = cols
-        self.event = event
-        self.host = host            # the pinned source, alive until used
-
-    def wait(self):
-        """The columns, once the current stream has waited for the copy."""
-        if self.event is not None:
-            cur = torch.cuda.current_stream(self.cols.device)
-            cur.wait_event(self.event)
-            self.cols.record_stream(cur)
-        return self.cols
-
-
 def _stage_wave_cols(preps: List[_SegPrep], wave_width: int,
-                     device) -> _Staged:
-    """Begin the wave's host->device column upload: on a card, from
-    pinned host memory with `non_blocking=True` on a side stream, with an
-    event that the wave's LDE waits on; so later waves' uploads overlap
-    the earlier waves' stages."""
-    preps = _pad_wave(preps, wave_width)
-    dev = torch.device(device)
-    host = torch.empty((len(preps),) + preps[0].limbs16.shape,
-                       dtype=torch.int32, pin_memory=dev.type == "cuda")
-    hv = host.numpy()
-    for i, p in enumerate(preps):
-        hv[i] = p.limbs16
-    if dev.type != "cuda":
-        return _Staged(host.to(dev))
-    side = torch.cuda.Stream(dev)
-    with torch.cuda.stream(side):
-        cols = host.to(dev, non_blocking=True)
-        event = torch.cuda.Event()
-        event.record(side)
-    return _Staged(cols, event, host)
+                     device) -> sd.Staged:
+    """Begin the wave's host->device column upload (`sd.stage_limbs`), so
+    later waves' uploads overlap the earlier waves' stages."""
+    return sd.stage_limbs([p.limbs16 for p in _pad_wave(preps, wave_width)],
+                          device)
 
 
 def _prove_wave(preps: List[_SegPrep], wave_width: int, device,
-                staged: Optional[_Staged] = None,
+                staged: Optional[sd.Staged] = None,
                 defer_assembly: bool = False):
     """Prove the segments of one wave (one exec_key), padded to
     `wave_width`, every stage once over the wave.

@@ -93,6 +93,49 @@ def _to_host_ints(t) -> List[int]:
 
 
 # ---------------------------------------------------------------------------
+# upload of trace columns (the wave's and the serial loop's prefetch)
+# ---------------------------------------------------------------------------
+
+class Staged:
+    """Trace limb columns, (S, w, n, 8) int32, on their way to the device."""
+
+    def __init__(self, cols, event=None, host=None) -> None:
+        self.cols = cols
+        self.event = event
+        self.host = host            # the pinned source, alive until used
+
+    def wait(self):
+        """The columns, once the current stream has waited for the copy."""
+        if self.event is not None:
+            cur = torch.cuda.current_stream(self.cols.device)
+            cur.wait_event(self.event)
+            self.cols.record_stream(cur)
+        return self.cols
+
+
+def stage_limbs(arrays, device) -> Staged:
+    """Begin the host->device upload of S (w, n, 8) limb arrays as one
+    (S, w, n, 8) tensor: on a card, from pinned host memory with
+    `non_blocking=True` on a side stream, with an event that the consumer
+    waits on (`Staged.wait`), so the copy overlaps the work queued before
+    it; on the CPU, a plain copy."""
+    dev = torch.device(device)
+    host = torch.empty((len(arrays),) + tuple(arrays[0].shape),
+                       dtype=torch.int32, pin_memory=dev.type == "cuda")
+    hv = host.numpy()
+    for i, a in enumerate(arrays):
+        hv[i] = a
+    if dev.type != "cuda":
+        return Staged(host.to(dev))
+    side = torch.cuda.Stream(dev)
+    with torch.cuda.stream(side):
+        cols = host.to(dev, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record(side)
+    return Staged(cols, event, host)
+
+
+# ---------------------------------------------------------------------------
 # LDE
 # ---------------------------------------------------------------------------
 
@@ -217,8 +260,12 @@ def fri_vals(layers, idxs):
 
 def _record_cvm(air: ZkLispAir, n_periodic: int):
     """Record the generic constraints to cvm bytecode + scan specs
-    (host-side, milliseconds; cached per configuration)."""
+    (host-side, milliseconds; cached per configuration).  The key holds
+    the AIR's features: the public elements carry the program-wide
+    feature mask only, and a segment's own mask changes the constraints
+    at the same width and usage."""
     key = ("cvm", air.trace_width, air.trace_len, n_periodic,
+           dataclasses.astuple(air.features), air.rom_enabled,
            tuple(air.pub.to_elements()))
     if key in _STAGE_CACHE:
         return _STAGE_CACHE[key]

@@ -38,12 +38,14 @@ def _calibrated_source(n_ops_target: int, src_of_k, args) -> tuple:
     return src_of_k(k), k, n
 
 
-def rollup_source(n_ops_target: int, path: str = ROLLUP_ZLISP) -> tuple:
-    """(source, BATCH, op count) of rollup-bench scaled to the target."""
+def rollup_batch_source(batch: int, path: str = ROLLUP_ZLISP) -> str:
+    """rollup-bench's source with `(def BATCH batch)`."""
     with open(path) as f:
         base = f.read()
+    return re.sub(r"\(def BATCH \d+\)", f"(def BATCH {batch})", base)
 
-    def src(k: int) -> str:
-        return re.sub(r"\(def BATCH \d+\)", f"(def BATCH {k})", base)
 
-    return _calibrated_source(n_ops_target, src, [])
+def rollup_source(n_ops_target: int, path: str = ROLLUP_ZLISP) -> tuple:
+    """(source, BATCH, op count) of rollup-bench scaled to the target."""
+    return _calibrated_source(
+        n_ops_target, lambda k: rollup_batch_source(k, path), [])
