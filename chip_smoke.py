@@ -57,12 +57,13 @@ Each phase prints one JSON object on a line of its own:
            same tensor code with each kernel's plain version): equal,
            with both child-batch times; then the byte comparisons
   stream   the streamed trace source (trace/stream.py), one line per
-           run, headed by the card's name and power limit: (a) the 16
-           segments with ZKL_STREAM_TRACE=1 through `agg.prove_chain`
-           (the serial loop, one segment's window and upload ahead):
-           the prove line's fields plus pass-1 seconds, per-segment
-           seconds, host RSS, the per-segment usage masks, and the
-           artifact's blake3 beside the wave's (they differ: streamed
+           run, headed by the card's name and power limit: (a) rollup-bench
+           scaled to 8 segments (2^15 rows) with ZKL_STREAM_TRACE=1
+           through `agg.prove_chain` (the serial loop, one segment's
+           window and upload ahead): the prove line's fields plus pass-1
+           seconds, per-segment seconds, host RSS and the per-segment
+           usage masks (with --segments 8 or less: that program, and the
+           artifact's blake3 beside the wave's: they differ, streamed
            segments carry their own usage masks, as in the JAX package);
            (b) the first 2 segments streamed and from the full trace
            (ZKL_WAVE=0), both with ZKL_UNIFORM_SEGMENTS=0: equal StepProof
@@ -76,6 +77,31 @@ Each phase prints one JSON object on a line of its own:
            at 128 bits (the aggregation over the quadratic extension) in a
            subprocess on the card, `cli verify` of its artifact, and of the
            artifact with one byte flipped (must be rejected)
+  mesh     `prove_program_mesh` of all segments on a mesh (one wave):
+           `Mesh([cuda:0] * 4)` (a quarter of the wave per shard), then
+           `Mesh([cuda:0] * 2)` with ZKL_MESH_CHAIN=1, and `default_mesh()`
+           where there are several cards; each run between counts_zero
+           and counts_read: StepProof bytes equal to the one-device
+           wave's, the artifact aggregated from its steps equal to the
+           default run's (blake3) and accepted by `verify_agg`; seconds,
+           launches per segment, peak memory, per-wave phases; then a
+           doctored state_in_hash must make the mesh chain check raise
+  ntt_mesh rollup-bench as one 2^16-row segment: the coset LDE of its 212
+           trace polynomials (N = 2^20) through `stark_device.lde_columns`
+           and through `ntt_mesh.lde_columns_sharded` on 2 and 4 entries
+           of the card: equal limb for limb; seconds, launches, peaks
+  multihost two worker processes (`python -m
+           zklisp_tpu_torch.parallel.multihost`) share the card, Gloo on
+           127.0.0.1, ZKL_WAVE=8 each: the gathered StepProofs equal the
+           one-device wave's, process 0's artifact the default run's
+           blake3, accepted by `verify_agg`; wall seconds, each worker's
+           seconds, peak memory, launches and exit code (the workers
+           aggregate through `prove_chain_multihost`); then
+           `run_dryrun_multihost` (the JAX package's toy configuration in
+           two workers, each on a mesh of 4 shards of the card, against
+           this process's run on such a mesh, 4 hasher rounds)
+  mesh_shapes (after mesh / ntt_mesh) each kernel == its plain version at
+           every shape only those phases gave it, timed as in `shapes`
   shapes   each kernel == its plain version at every shape the default
            run gave it, and the times: poseidon12 at every batch, the
            team kernel and the yardstick as device time in turns, the
@@ -90,8 +116,11 @@ non-zero exit code and no result line.  Without a CUDA card the script
 exits non-zero at once.
 
 Options (for development; the default run takes none):
-  --phases device,build,kernels,commit,prove,stream,cli,shapes
-                    subset of phases (`stream` and `shapes` need `prove`)
+  --phases device,build,kernels,commit,prove,stream,cli,mesh,ntt_mesh,
+           multihost,shapes
+                    subset of phases (`stream` and `shapes` need `prove`;
+                    `mesh` and `multihost` without `prove` run the default
+                    configuration first, as their reference)
   --segments K      K = 2, 4 or 8: the rollup-bench program scaled to K
                     segments of 4096 rows (2^16 rows: 16), aggregated whole
   --profile         after phase `prove`, the default configuration's
@@ -123,6 +152,7 @@ import shutil
 import subprocess
 import sys
 import time
+import types
 
 T_START = time.time()
 
@@ -150,7 +180,8 @@ from zklisp_tpu_torch.prove import stark_device              # noqa: E402
 DEV = torch.device("cuda")
 P = f128.P
 ROUNDS = 27
-ALL_PHASES = "device,build,kernels,commit,prove,stream,cli,shapes"
+ALL_PHASES = ("device,build,kernels,commit,prove,stream,cli,mesh,ntt_mesh,"
+              "multihost,shapes")
 SEGMENTS = 16          # of 4096 rows: the 2^16-row trace
 PLAIN_SLICE = 16384    # states per call of the plain version (its int64
                        # temporaries take ~75 KB per state)
@@ -199,6 +230,10 @@ SWITCHES = (*EARLIER_ENV, "ZKL_STREAM_TRACE", "ZKL_UNIFORM_SEGMENTS")
 THRESHOLD_BATCH = 121
 THRESHOLD_SEGMENTS = 128
 THRESHOLD_FIRST = 8
+# phase `stream` (a): the streamed chain on this many segments of 4096 rows
+# (rollup-bench scaled to them; fewer than the 16 of the default run, so
+# that the mesh phases fit the run's time)
+STREAM_CHAIN_SEGMENTS = 8
 CONCURRENT_SEGMENTS = 4        # phase `stream` (d): the 2^14-row program
 VERIFY_POOL = None             # worker processes for verify_step (main())
 
@@ -602,7 +637,7 @@ def int_mm_call(M: int, K: int, N: int):
     return lambda: torch._int_mm(a, wt.t())
 
 
-def phase_shapes_digit_dot(shape_log):
+def phase_shapes_digit_dot(shape_log, name: str = "shapes", timed_only=None):
     """Every distinct (M, K, N) the main path launched, costliest first:
     the wrapper and the yardstick vs digit_dot_plain (exact equality),
     then the device times of the wgmma kernel, the yardstick and
@@ -624,6 +659,8 @@ def phase_shapes_digit_dot(shape_log):
         if any(errs.values()):
             fail(f"digit_dot != plain at main-path shape {(M, K, N)}: "
                  f"max abs err {errs}")
+        if timed_only is not None and (M, K, N) not in timed_only:
+            continue
         fns = {d: (lambda d=d: raw_dot(a, wt, d)) for d in DD_ENTRIES}
         lib_fn = int_mm_call(M, K, N)
         if lib_fn is not None:
@@ -649,7 +686,7 @@ def phase_shapes_digit_dot(shape_log):
                       "tera_ops_per_s": 2.0 * M * K * N / ms["wgmma"] / 1e9})
         del a, wt, fns, lib_fn
         torch.cuda.empty_cache()
-    emit({"phase": "shapes", "kernel": "digit_dot", "tolerance": 0,
+    emit({"phase": name, "kernel": "digit_dot", "tolerance": 0,
           "max_abs_err": max_err, "timing": "ms, earlier_ms, library_ms: "
           "device time, 10 launches queued behind a spin kernel, median of "
           "4 rounds in turns; host_us: the host's time to issue one of "
@@ -667,7 +704,8 @@ def p12_bound(b: int):
             "operations" if ops_ms >= bytes_ms else "bytes", ops_ms, bytes_ms)
 
 
-def phase_shapes(batch_log, n_segments: int, agg_log=()):
+def phase_shapes(batch_log, n_segments: int, agg_log=(),
+                 name: str = "shapes"):
     """Every distinct batch the step proofs (`batch_log`) and the
     aggregation (`agg_log`) gave the kernel, largest first:
     the wrapper and each entry of P12_ENTRIES vs permute12_plain (exact
@@ -725,7 +763,7 @@ def phase_shapes(batch_log, n_segments: int, agg_log=()):
         torch.cuda.empty_cache()
     per_segment = {k: sum(r["launches_per_segment"] * r[k] for r in timed)
                    for k in ("ms", "earlier_ms", "wrapper_ms", "bound_ms")}
-    emit({"phase": "shapes", "kernel": "poseidon12", "tolerance": 0,
+    emit({"phase": name, "kernel": "poseidon12", "tolerance": 0,
           "max_abs_err": max_err, "states_main_path": sum(batch_log),
           "states_aggregation": sum(agg_log),
           "timing": "ms (team kernel), earlier_ms (yardstick): device "
@@ -816,7 +854,8 @@ def prove_setup(n_segments: int, batch: int | None = None):
         fail(f"rollup-bench at BATCH {batch}: {n_ops} ops, {planned} "
              f"segments, not {n_segments}")
     return {"program": program, "pi": pi, "opts": opts, "batch": batch,
-            "ops": n_ops, "rows": n_segments * 4096, "segment_rows": 4096,
+            "source": src, "ops": n_ops, "rows": n_segments * 4096,
+            "segment_rows": 4096,
             "compile_s": time.time() - t0}
 
 
@@ -1312,15 +1351,20 @@ def phase_concurrent(smi_line: str):
 
 
 def phase_stream(setup, wave_blake3, smi_line: str, stream_all: bool):
-    """(a) the streamed chain at full width, (b) streamed vs full-trace
-    StepProof bytes with per-segment masks, (c) the 2^19-row program with
-    no switch set, (d) concurrent segments."""
-    a = phase_prove(setup, "stream", {"ZKL_STREAM_TRACE": "1"}, smi_line,
+    """(a) the streamed chain at full width, on STREAM_CHAIN_SEGMENTS
+    segments, (b) streamed vs full-trace StepProof bytes with per-segment
+    masks, (c) the 2^19-row program with no switch set, (d) concurrent
+    segments."""
+    n_a = min(STREAM_CHAIN_SEGMENTS, setup["rows"] // setup["segment_rows"])
+    setup_a = (setup if n_a == setup["rows"] // setup["segment_rows"]
+               else prove_setup(n_a))
+    a = phase_prove(setup_a, "stream", {"ZKL_STREAM_TRACE": "1"}, smi_line,
                     chain=True, name="stream")
-    emit({"phase": "stream", "compare": "artifact blake3, streamed vs "
-          "the wave (streamed segments carry their own usage masks)",
-          "stream": a["blake3"], "wave": wave_blake3,
-          "equal": a["blake3"] == wave_blake3})
+    if setup_a is setup:
+        emit({"phase": "stream", "compare": "artifact blake3, streamed vs "
+              "the wave (streamed segments carry their own usage masks)",
+              "stream": a["blake3"], "wave": wave_blake3,
+              "equal": a["blake3"] == wave_blake3})
 
     runs = {c: phase_prove(setup, c, env, smi_line, name="stream")
             for c, env in BYTE_CHECK_CONFIGS.items()}
@@ -1383,10 +1427,326 @@ def phase_cli(smi_line: str):
         fail("cli verify accepted an artifact with a flipped byte")
 
 
-def kernels_summary(run, errs, timed, p12_sums) -> dict:
+# phase `mesh`: the wave sharded over repeated entries of the one card
+MESH_SHARDS = 4
+MESH_CHAIN_SHARDS = 2
+# phase `ntt_mesh`: rollup-bench as one 2^16-row segment (N = 2^20)
+NTT_MESH_ROWS = 1 << 16
+NTT_MESH_SHARDS = (2, 4)
+# phase `multihost`: worker processes sharing the card, segments per wave
+MULTIHOST_PROCS = 2
+MULTIHOST_WAVE = 8
+# the toy dry run: shards of the card in each worker's mesh (the JAX dry
+# run's virtual devices per process)
+DRYRUN_SHARDS = 4
+
+
+def artifact_check(steps, setup, want_blake3: str, what: str,
+                   blob: bytes | None = None) -> dict:
+    """Aggregate `steps` into a ZKLRC1 artifact (unless `blob` is one
+    already), decode it and `verify_agg` it; its blake3 must be
+    `want_blake3` (the default run's)."""
+    from zklisp_tpu_torch.agg import aggregate as agg
+    from zklisp_tpu_torch.crypto.blake3 import blake3
+    from zklisp_tpu_torch.parallel import multihost
+
+    t0 = time.time()
+    if blob is None:
+        proof, _, agg_pi = multihost.aggregate_steps(
+            steps, setup["pi"], setup["opts"], device=DEV)
+        blob = agg.encode_artifact(proof, agg_pi)
+    t_agg = time.time() - t0
+    t0 = time.time()
+    proof2, pi2 = agg.decode_artifact(blob)
+    try:
+        agg.verify_agg(proof2, pi2)
+    except Exception as e:                        # noqa: BLE001
+        fail(f"verify_agg rejected the {what} artifact: {e!r}")
+    digest = blake3(blob).hex()
+    if digest != want_blake3:
+        fail(f"the {what} artifact's blake3 {digest} is not the default "
+             f"run's {want_blake3}")
+    return {"agg_s": t_agg, "verify_agg_s": time.time() - t0,
+            "artifact_bytes": len(blob), "artifact_blake3": digest,
+            "verified": True, "blake3_equal": True}
+
+
+def mesh_run(setup, mesh, wave: int, env: dict):
+    """`prove_program_mesh` of all segments on `mesh`, every kernel's count
+    set to 0 just before and read just after; the steps, launches, logs,
+    seconds, peak memory and the wave's phases."""
+    from zklisp_tpu_torch.parallel import mesh_prover
+    from zklisp_tpu_torch.utils import tracing
+
+    os.environ.update(env)
+    tracing.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counts_zero()
+    t0 = time.time()
+    try:
+        steps = mesh_prover.prove_program_mesh(
+            setup["program"], setup["pi"], setup["opts"], mesh=mesh,
+            wave=wave)
+        torch.cuda.synchronize()
+    finally:
+        for k in env:
+            os.environ.pop(k, None)
+    seconds = time.time() - t0
+    launches, batch_log, shape_log = counts_read()
+    n = len(steps)
+    for k, v in launches.items():
+        if v <= 0:
+            fail(f"the mesh run on {mesh} launched {k} no time")
+    return {"steps": [s.to_bytes() for s in steps], "seconds": seconds,
+            "launches": launches,
+            "launches_per_segment": {k: v / n for k, v in launches.items()},
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+            "batch_log": batch_log, "shape_log": shape_log,
+            "waves": wave_split(tracing.events())}
+
+
+def phase_mesh(setup, run, smi_line: str):
+    """The segments on a mesh of MESH_SHARDS entries of the one card (one
+    wave, a quarter of it per shard), then on MESH_CHAIN_SHARDS entries
+    under ZKL_MESH_CHAIN=1, and on `default_mesh()` where there are
+    several cards: every StepProof equal to the one-device wave's, the
+    artifact aggregated from the mesh's steps equal to the default run's
+    and accepted by `verify_agg`; a doctored state_in_hash must raise the
+    chain check's error on the mesh."""
+    from zklisp_tpu_torch.parallel import mesh_prover
+    from zklisp_tpu_torch.prove.formats import StepProof
+    from zklisp_tpu_torch.trace import build as tb
+
+    n_seg = len(run["steps"])
+    wave = max(n_seg, MESH_SHARDS)
+    configs = [("cuda:0 x %d" % MESH_SHARDS,
+                mesh_prover.Mesh([DEV] * MESH_SHARDS), {}),
+               ("cuda:0 x %d, ZKL_MESH_CHAIN=1" % MESH_CHAIN_SHARDS,
+                mesh_prover.Mesh([DEV] * MESH_CHAIN_SHARDS),
+                {"ZKL_MESH_CHAIN": "1"})]
+    if torch.cuda.device_count() > 1:
+        configs.append(("default_mesh()", mesh_prover.default_mesh(), {}))
+    chained = []
+    real_check = mesh_prover._chain_check_mesh
+
+    def spy(preps, mesh=None):
+        chained.append((preps, mesh))
+        return real_check(preps, mesh)
+
+    logs = ([], [])
+    mesh_prover._chain_check_mesh = spy
+    try:
+        for what, mesh, env in configs:
+            r = mesh_run(setup, mesh, wave, env)
+            equal = [a == b for a, b in zip(r["steps"], run["steps"])]
+            if len(r["steps"]) != n_seg or not all(equal):
+                fail(f"mesh {what}: StepProof bytes differ from the "
+                     f"one-device wave's: {equal}")
+            art = ({} if env else artifact_check(
+                [StepProof.from_bytes(b) for b in r["steps"]], setup,
+                run["blake3"], f"mesh {what}"))
+            logs[0].extend(r["batch_log"])
+            logs[1].extend(r["shape_log"])
+            print(smi_line, flush=True)
+            emit({"phase": "mesh", "mesh": what,
+                  "devices": [str(d) for d in mesh.devices],
+                  "switches": env, "segments": n_seg, "wave": wave,
+                  "segments_per_shard": wave // mesh.size,
+                  "steps_equal_one_device_wave": equal,
+                  "seconds": r["seconds"],
+                  "rows_per_s": setup["rows"] / r["seconds"],
+                  "launches": r["launches"],
+                  "launches_per_segment": r["launches_per_segment"],
+                  "peak_memory_bytes": r["peak_memory_bytes"],
+                  "per_wave": r["waves"], **art})
+    finally:
+        mesh_prover._chain_check_mesh = real_check
+    if not chained:
+        fail("ZKL_MESH_CHAIN=1 did not run the mesh chain check")
+    preps, mesh = chained[0]
+    broken = [types.SimpleNamespace(boundary=dict(p.boundary))
+              for p in preps]
+    broken[n_seg // 2].boundary["state_in_hash"] = bytes(32)
+    try:
+        real_check(broken, mesh)
+    except tb.TraceError as e:
+        emit({"phase": "mesh", "doctored_state_in_hash": n_seg // 2,
+              "shards": mesh.size, "raised": str(e)})
+    else:
+        fail("the mesh chain check accepted a doctored state_in_hash")
+    return logs
+
+
+def phase_ntt_mesh(smi_line: str):
+    """Rollup-bench as one 2^16-row segment: its trace polynomials' coset
+    LDE (N = 2^20, blowup 16) through `stark_device.lde_columns` on the
+    card, and through `ntt_mesh.lde_columns_sharded` on 2 and 4 entries of
+    the card (each sharded run between counts_zero and counts_read): equal
+    limb for limb."""
+    from zklisp_tpu_torch.parallel import mesh_prover, ntt_mesh
+    from zklisp_tpu_torch.prove import planner
+    from zklisp_tpu_torch.trace import build as tb
+
+    setup = prove_setup(NTT_MESH_ROWS // 4096)
+    opts = dataclasses.replace(setup["opts"], max_segment_rows=NTT_MESH_ROWS)
+    program, pi = setup["program"], setup["pi"]
+    segs = planner.plan_segments(program, pi, opts)
+    if len(segs) != 1:
+        fail(f"{len(segs)} segments at max_segment_rows {NTT_MESH_ROWS}")
+    full = tb.build_trace(program, pi)
+    rom_acc = tb.rom_acc_from_program(program)
+    base = opts.to_proof_options()
+    prep = mesh_prover._SegPrep(0, 1, segs[0], full, program, pi, base, 0,
+                                pi.program_id, rom_acc)
+    cols = stark_device.stage_limbs([prep.limbs16], DEV).wait()[0]
+    del full, prep
+    blowup = opts.blowup
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    polys, ref = stark_device.lde_columns(cols, blowup)
+    torch.cuda.synchronize()
+    one_s = time.time() - t0
+    del cols
+    out = {"phase": "ntt_mesh", "program": "examples/rollup-bench.zlisp",
+           "rows": NTT_MESH_ROWS, "columns": int(polys.shape[0]),
+           "blowup": blowup, "N": int(ref.shape[1]),
+           "lde_bytes": ref.numel() * 4, "one_device_s": one_s,
+           "one_device_peak_bytes": torch.cuda.max_memory_allocated(),
+           "sharded": []}
+    logs = ([], [])
+    for C in NTT_MESH_SHARDS:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        counts_zero()
+        t0 = time.time()
+        got = ntt_mesh.lde_columns_sharded(
+            polys, blowup, mesh_prover.Mesh([DEV] * C))
+        torch.cuda.synchronize()
+        seconds = time.time() - t0
+        launches, batch_log, shape_log = counts_read()
+        equal = torch.equal(got, ref)
+        del got
+        torch.cuda.empty_cache()
+        if launches["digit_dot"] <= 0:
+            fail(f"lde_columns_sharded on {C} shards launched digit_dot "
+                 f"no time")
+        logs[0].extend(batch_log)
+        logs[1].extend(shape_log)
+        out["sharded"].append({
+            "shards": C, "R": int(ref.shape[1]) // C, "seconds": seconds,
+            "equal_to_one_device_lde": equal, "launches": launches,
+            "digit_dot_shapes": sorted(set(shape_log)),
+            "peak_bytes": torch.cuda.max_memory_allocated()})
+        if not equal:
+            fail(f"lde_columns_sharded on {C} shards != lde_columns")
+    del polys, ref
+    torch.cuda.empty_cache()
+    print(smi_line, flush=True)
+    emit(out)
+    return logs
+
+
+def phase_multihost(setup, run, smi_line: str):
+    """MULTIHOST_PROCS worker processes (`python -m
+    zklisp_tpu_torch.parallel.multihost`) share the card and a Gloo group
+    on 127.0.0.1, each proves its contiguous block of the segments with
+    ZKL_WAVE=MULTIHOST_WAVE; the gathered StepProofs must be the one-device
+    wave's, and the workers' aggregation of them
+    (`prove_chain_multihost`, written by process 0) the default run's
+    artifact, accepted by `verify_agg`."""
+    from zklisp_tpu_torch.parallel import multihost
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, "zklisp_tpu_torch", "build", "multihost")
+    os.makedirs(work, exist_ok=True)
+    src = os.path.join(work, "rollup.zlisp")
+    art = os.path.join(work, "rollup.zklrc1")
+    with open(src, "w") as f:
+        f.write(setup["source"])
+    o = setup["opts"]
+    env = dict(os.environ, ZKL_WAVE=str(MULTIHOST_WAVE))
+    # the workers share the card with this process: hand back its cached
+    # blocks first (the default run's, when no mesh phase ran before)
+    torch.cuda.empty_cache()
+    parent = {"allocated_bytes": torch.cuda.memory_allocated(DEV),
+              "reserved_bytes": torch.cuda.memory_reserved(DEV)}
+    gathered, stats, wall = multihost.launch_workers(
+        MULTIHOST_PROCS,
+        ["--device", DEV.type, "--program", src, "--artifact", art,
+         "--queries", str(o.queries), "--blowup", str(o.blowup),
+         "--grind", str(o.grind), "--security-bits",
+         str(o.min_security_bits)],
+        env=env, timeout_s=900, work_dir=work)
+    equal = [a == b for a, b in zip(gathered, run["steps"])]
+    if len(gathered) != len(run["steps"]) or not all(equal):
+        fail(f"multihost: gathered StepProofs differ from the one-device "
+             f"wave's: {equal}")
+    for st in stats:
+        for k, v in st["launches"].items():
+            if v <= 0:
+                fail(f"multihost worker {st['process']} launched {k} no "
+                     f"time")
+    with open(art, "rb") as f:
+        blob = f.read()
+    art_check = artifact_check(None, setup, run["blake3"],
+                               "multihost process 0", blob=blob)
+    # the dry run: the toy configuration in MULTIHOST_PROCS workers, each
+    # on a mesh of DRYRUN_SHARDS shards of the card, against this
+    # process's run on such a mesh (it raises on a byte difference)
+    t0 = time.time()
+    dry = multihost.run_dryrun_multihost(MULTIHOST_PROCS, DRYRUN_SHARDS,
+                                         device=DEV, timeout_s=600)
+    dry_s = time.time() - t0
+    print(smi_line, flush=True)
+    emit({"phase": "multihost", "processes": MULTIHOST_PROCS,
+          "backend": "gloo", "coordinator": "127.0.0.1",
+          "switches": {"ZKL_WAVE": str(MULTIHOST_WAVE)},
+          "segments": len(gathered), "steps_equal_one_device_wave": equal,
+          "wall_s": wall, "parent": parent, "workers": stats,
+          "worker_exit_codes": [st["exit_code"] for st in stats],
+          **art_check, "dryrun": {"config": "multihost.dryrun_config",
+                                  "shards_per_process": DRYRUN_SHARDS,
+                                  "segments": len(dry), "equal": True,
+                                  "seconds": dry_s}})
+
+
+def phase_mesh_shapes(default_run, mesh_logs):
+    """Each kernel against its plain version at every shape the mesh
+    phases gave it that the default run did not, with the times (the
+    `shapes` phase's functions, lines headed `mesh_shapes`)."""
+    batches = [b for b in mesh_logs[0]
+               if b not in set(default_run["batch_log"])
+               | set(default_run["agg_log"])]
+    shapes = [s for s in mesh_logs[1]
+              if s not in set(default_run["shape_log"])]
+    out = {"poseidon12": [], "digit_dot": []}
+    errs = {"poseidon12": 0, "digit_dot": 0}
+    if batches:
+        errs["poseidon12"], out["poseidon12"], _ = phase_shapes(
+            batches, len(default_run["steps"]), name="mesh_shapes")
+    if shapes:
+        # every shape is checked; of each (K, N) the largest M and the
+        # most launched one are timed (the chunk tails give dozens of Ms)
+        by_kn = collections.defaultdict(set)
+        for M, K, N in shapes:
+            by_kn[(K, N)].add(M)
+        timed_only = set()
+        for (K, N), ms in by_kn.items():
+            timed_only.add((max(ms), K, N))
+            timed_only.add((max(ms, key=lambda m: (shapes.count((m, K, N)),
+                                                   m)), K, N))
+        errs["digit_dot"], out["digit_dot"] = phase_shapes_digit_dot(
+            shapes, name="mesh_shapes", timed_only=timed_only)
+    return errs, out
+
+
+def kernels_summary(run, errs, timed, p12_sums, mesh_timed) -> dict:
     """The `{"kernels": [...]}` line: per kernel the launches of the
     default run and the times at its costliest main-path shape
-    (poseidon12: also the per-segment sums over all its batches)."""
+    (poseidon12: also the per-segment sums over all its batches), and the
+    times at the shapes only the mesh phases gave it."""
     n = len(run["steps"])
     top_p, top_d = timed["poseidon12"][0], timed["digit_dot"][0]
     return {"kernels": [
@@ -1402,7 +1762,8 @@ def kernels_summary(run, errs, timed, p12_sums) -> dict:
          "library_ms": None, "earlier_ms": top_p["earlier_ms"],
          "wrapper_ms": top_p["wrapper_ms"], "batch": top_p["batch"],
          "rounds": top_p["rounds"], "per_segment_ms": p12_sums,
-         "other_shapes": timed["poseidon12"][1:]},
+         "other_shapes": timed["poseidon12"][1:],
+         "mesh_shapes": mesh_timed["poseidon12"]},
         {"name": "digit_dot", "route": "cuda",
          "source": "zklisp_tpu_torch/csrc/digit_dot.cu",
          "replaces": "scripts/exp_pallas_int8_dot.py:41",
@@ -1415,7 +1776,8 @@ def kernels_summary(run, errs, timed, p12_sums) -> dict:
          "earlier_ms": top_d["earlier_ms"],
          "wrapper_ms": top_d["wrapper_ms"],
          "shape_MKN": [top_d["M"], top_d["K"], top_d["N"]],
-         "other_shapes": timed["digit_dot"][1:]}]}
+         "other_shapes": timed["digit_dot"][1:],
+         "mesh_shapes": mesh_timed["digit_dot"]}]}
 
 
 def main() -> None:
@@ -1472,6 +1834,28 @@ def run_phases(args, phases) -> None:
     if "cli" in phases:
         phase_cli(smi_line)
         lap("cli")
+    mesh_logs = ([], [])
+    if {"mesh", "multihost"} & set(phases) and "prove" not in phases:
+        # the one-device wave these phases are held against
+        setup = prove_setup(args.segments)
+        run = phase_prove(setup, "default", {}, smi_line, chain=True)
+        lap("prove_reference")
+    for name in ("mesh", "ntt_mesh"):
+        if name in phases:
+            logs = (phase_mesh(setup, run, smi_line) if name == "mesh"
+                    else phase_ntt_mesh(smi_line))
+            mesh_logs[0].extend(logs[0])
+            mesh_logs[1].extend(logs[1])
+            lap(name)
+    if "multihost" in phases:
+        phase_multihost(setup, run, smi_line)
+        lap("multihost")
+    mesh_timed = {"poseidon12": [], "digit_dot": []}
+    if mesh_logs[0] or mesh_logs[1]:
+        mesh_errs, mesh_timed = phase_mesh_shapes(run, mesh_logs)
+        for k, v in mesh_errs.items():
+            errs[k] = max(errs[k], v)
+        lap("mesh_shapes")
     if "shapes" in phases:
         err, timed["poseidon12"], p12_sums = phase_shapes(
             run["batch_log"], len(run["steps"]), run["agg_log"])
@@ -1480,7 +1864,7 @@ def run_phases(args, phases) -> None:
         err, timed["digit_dot"] = phase_shapes_digit_dot(run["shape_log"])
         errs["digit_dot"] = max(errs["digit_dot"], err)
         lap("shapes_digit_dot")
-        emit(kernels_summary(run, errs, timed, p12_sums))
+        emit(kernels_summary(run, errs, timed, p12_sums, mesh_timed))
     emit({"phase": "total", "seconds": round(time.time() - T_START, 1),
           "phases": phases, "phase_seconds": seconds})
     print(smi_line, flush=True)

@@ -224,10 +224,10 @@ def test_default_wave_width_equals_jax(monkeypatch, n, w, blowup, n_seg,
         monkeypatch.delenv("ZKL_WAVE_BYTES", raising=False)
     else:
         monkeypatch.setenv("ZKL_WAVE_BYTES", wave_bytes)
-    got = t_mesh.default_wave_width(n, w, blowup, n_seg, "cpu")
+    got = t_mesh.default_wave_width(None, n, w, blowup, n_seg, "cpu")
     assert got == j_mesh.default_wave_width(None, n, w, blowup, n_seg)
     monkeypatch.setenv("ZKL_WAVE", "5")
-    assert t_mesh.default_wave_width(n, w, blowup, n_seg, "cpu") == 5
+    assert t_mesh.default_wave_width(None, n, w, blowup, n_seg, "cpu") == 5
 
 
 def test_grind_many_equals_each_grind_and_jax():
@@ -251,14 +251,6 @@ def test_chain_check_raises_on_a_broken_chain():
     broken[2].boundary["state_in_hash"] = bytes(32)
     with pytest.raises(t_tb.TraceError, match="1 segment boundary"):
         t_mesh._chain_check_mesh(broken)
-
-
-def test_zkl_mesh_raises(monkeypatch):
-    monkeypatch.setenv("ZKL_MESH", "1")
-    prog, pub = _port_program()
-    with pytest.raises(NotImplementedError, match="ZKL_MESH"):
-        t_prover.prove_program(prog, pub, t_params.ProverOptions(**KW),
-                               device="cpu")
 
 
 def test_default_device_without_a_card_raises(monkeypatch):

@@ -22,7 +22,28 @@ def resolve(device=None) -> torch.device:
     return dev
 
 
+def cuda_devices(device) -> list:
+    """The distinct CUDA devices among `device`: one device, or a list or
+    tuple of them (a mesh's)."""
+    devs = device if isinstance(device, (list, tuple)) else [device]
+    out = []
+    for d in devs:
+        d = torch.device(d)
+        if d.type == "cuda" and d not in out:
+            out.append(d)
+    return out
+
+
 def sync(device) -> None:
-    """Wait for the card's queued work (no-op for the CPU)."""
-    if torch.device(device).type == "cuda":
-        torch.cuda.synchronize()
+    """Wait for the queued work of `device`, or of every device of a list
+    (no-op for the CPU).  Each card is synchronized by name:
+    `torch.cuda.synchronize()` alone waits for the current card only."""
+    for d in cuda_devices(device):
+        torch.cuda.synchronize(d)
+
+
+def peak_bytes(device) -> int:
+    """The largest `torch.cuda.max_memory_allocated` among the CUDA
+    devices of `device` (one device or a list); 0 without one."""
+    return max((torch.cuda.max_memory_allocated(d)
+                for d in cuda_devices(device)), default=0)

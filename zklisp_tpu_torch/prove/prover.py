@@ -11,12 +11,17 @@ full trace), the streamed source of trace/stream.py, which keeps one
 segment of rows resident and builds each window on demand.  A streamed
 segment's usage mask comes from its own rows, as in the JAX package.
 
-Paths: a full trace of more than one segment goes to the wave prover
-(parallel/mesh_prover.py: every stage once over a wave of segments, the
-same StepProof bytes), as in the JAX package; ZKL_WAVE=0, and every
-streamed program, keep the serial loop (`prev_state` chained, each
-segment's limb upload queued ahead of its proof: all of them up front
-from a full trace, one segment ahead from a streamed one).
+Paths: ZKL_MESH=1 (read at call time) sends the program to the wave
+prover on the default mesh (every visible card) when that mesh has more
+than one device, before the trace source is chosen, so such a program is
+never streamed, as in the JAX package; with one device the switch
+changes nothing.  Otherwise a full trace of more than one segment goes
+to the wave prover (parallel/mesh_prover.py: every stage once over a
+wave of segments, the same StepProof bytes), as in the JAX package;
+ZKL_WAVE=0, and every streamed program, keep the serial loop
+(`prev_state` chained, each segment's limb upload queued ahead of its
+proof: all of them up front from a full trace, one segment ahead from a
+streamed one).
 `max_concurrent_segments` > 1 (off the wave) proves segments side by side
 in threads instead, each on its own CUDA stream on a card.
 
@@ -31,8 +36,6 @@ call time) gives each segment its own feature mask, column layout and
 usage mask instead, as the JAX package's host path does.  ZKL_PREFLIGHT=
 console|json runs the row-wise constraint check before each segment is
 proved.
-
-Not here: proving across several GPUs (ZKL_MESH raises).
 """
 
 from __future__ import annotations
@@ -133,18 +136,21 @@ def prove_program(program: Program, pub_inputs: pi_mod.PublicInputs,
     proved so far are returned (a deliberately partial run, e.g. under a
     time budget).
 
-    The trace source (`stream_mode`) is chosen first: a streamed program
-    stays off the wave.  Otherwise more than one segment goes to the wave
-    prover (`ZKL_WAVE=0` opts out), on any device.  Off the wave,
-    `opts.max_concurrent_segments` > 1 proves segments side by side in
-    threads (`_prove_concurrent`), else the serial loop runs
-    (`_prove_serial`).  ZKL_MESH (several GPUs) raises
-    NotImplementedError."""
+    ZKL_MESH=1 with more than one device in `default_mesh(device=dev)`
+    (the visible cards) proves on that mesh, streamed or not, as in the
+    JAX package.  Otherwise the trace source (`stream_mode`) is chosen
+    first: a streamed program stays off the wave.  More than one segment
+    goes to the wave prover (`ZKL_WAVE=0` opts out), on any device.  Off
+    the wave, `opts.max_concurrent_segments` > 1 proves segments side by
+    side in threads (`_prove_concurrent`), else the serial loop runs
+    (`_prove_serial`)."""
     dev = resolve(device)
     if os.environ.get("ZKL_MESH", "") not in ("", "0"):
-        from ..parallel.mesh_prover import prove_program_mesh
-        return prove_program_mesh(program, pub_inputs, opts, device=dev,
-                                  on_steps=on_steps)
+        from ..parallel.mesh_prover import default_mesh, prove_program_mesh
+        mesh = default_mesh(device=dev)
+        if mesh.size > 1:
+            return prove_program_mesh(program, pub_inputs, opts, mesh=mesh,
+                                      on_steps=on_steps)
     base_opts = opts.to_proof_options()
     segments = planner.plan_segments(program, pub_inputs, opts)
     if not segments:

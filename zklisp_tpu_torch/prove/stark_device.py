@@ -598,7 +598,19 @@ def fri_layers_chain(deep, coins, num_layers: int):
     device draw is exact.  All roots come back in ONE copy at the end;
     the host coins then replay the reseeds (draws do not mutate the
     seed, so the alphas need no replay).  Same arguments, returns and
-    final coin states as `fri_layers_loop`."""
+    final coin states as `fri_layers_loop`.  Its two halves,
+    `fri_chain_queue` (the device work) and `fri_chain_finish` (the read
+    and the host coins), let a sharded wave queue every shard's chain
+    before it reads any."""
+    levels_all, layers, roots, layer = fri_chain_queue(deep, coins,
+                                                       num_layers)
+    return fri_chain_finish(coins, levels_all, roots), layers, layer
+
+
+def fri_chain_queue(deep, coins, num_layers: int):
+    """Queue every layer's commitment, device coin and fold of
+    `fri_layers_chain`; reads nothing back.  Returns (levels per layer,
+    layers, roots per layer, final layer)."""
     dev = deep.device
     coins_l = _coin_list(coins)
     S = len(coins_l)
@@ -620,6 +632,13 @@ def fri_layers_chain(deep, coins, num_layers: int):
         layer = fri_fold(layer, alpha.reshape(deep.shape[:-2]
                                               + (limb.NLIMB,)),
                          *_x0_tables(layer.shape[-2], dev))
+    return levels_all, layers, roots, layer
+
+
+def fri_chain_finish(coins, levels_all, roots) -> List[_DevCommitment]:
+    """Read the roots queued by `fri_chain_queue` in ONE copy, make the
+    commitments and replay the host coins' reseeds."""
+    coins_l = _coin_list(coins)
     comms = []
     if roots:
         root_ints = limb.to_ints(torch.stack(roots))            # (L, S)
@@ -628,7 +647,7 @@ def fri_layers_chain(deep, coins, num_layers: int):
             comms.append(comm)
             for coin, v in zip(coins_l, comm.roots_fe):
                 coin.reseed(f128.fe_to_bytes_fold(v))
-    return comms, layers, layer
+    return comms
 
 
 # ---------------------------------------------------------------------------

@@ -1,9 +1,10 @@
 """Lightweight phase timers.
 
 `phase(name, device=...)` times a block on the host clock; when the
-device is a CUDA card it calls `torch.cuda.synchronize()` at the phase's
-end, so the time covers the device work the phase queued, and records
-the card's peak allocated bytes so far.  Totals accumulate per name
+device is a CUDA card, or a list of devices (a mesh's) with cards among
+them, it synchronizes each of those cards at the phase's end, so the time
+covers the device work the phase queued, and records the largest peak
+allocated bytes among them so far.  Totals accumulate per name
 (`summary()`, `reset()`), and every phase is also logged in order with
 its fields (`events()`), which is how a caller prints a per-phase split
 of a proving run, per wave or per segment.  Phases may end in several
@@ -24,6 +25,8 @@ import time
 from contextlib import contextmanager
 
 import torch
+
+from ..device import cuda_devices, peak_bytes, sync
 
 logger = logging.getLogger("zklisp_tpu_torch")
 
@@ -71,17 +74,16 @@ def events() -> list:
 
 @contextmanager
 def phase(name: str, device=None, **fields):
-    """Timed phase context; synchronizes a CUDA `device` at its end."""
+    """Timed phase context; synchronizes the CUDA cards of `device` (one
+    device or a list) at its end."""
     t0 = time.time()
     with torch.profiler.record_function("phase:" + name):
         try:
             yield
         finally:
-            cuda = device is not None and torch.device(device).type == "cuda"
-            if cuda:
-                torch.cuda.synchronize()
-                fields = dict(fields,
-                              peak_bytes=torch.cuda.max_memory_allocated())
+            if device is not None and cuda_devices(device):
+                sync(device)
+                fields = dict(fields, peak_bytes=peak_bytes(device))
             dt = time.time() - t0
             with _LOCK:
                 _TOTALS[name] = _TOTALS.get(name, 0.0) + dt
