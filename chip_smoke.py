@@ -3,32 +3,35 @@
 
     python3 chip_smoke.py            # all phases, needs one CUDA card
 
-Builds the port's CUDA kernels (poseidon12, digit_dot) from the sources in
-this checkout, holds each against its plain PyTorch version on the card,
-and drives the port's main path — compile the scaled rollup-bench program,
-build the 2^16-row trace, prove its 16 segments of 4096 rows (blowup 16, 64
-queries, grind 16, 27 hasher rounds) and aggregate them into one ZKLRC1
-artifact with `agg.prove_chain`, verify every StepProof with `verify_step`
-and the artifact with `verify_agg` — then the command line:
+Builds the port's CUDA kernels (poseidon12, digit_dot, composition) from
+the sources in this checkout, holds each against its plain PyTorch version
+on the card, and drives the port's main path — compile the scaled
+rollup-bench program, build the 2^16-row trace, prove its 16 segments of
+4096 rows (blowup 16, 64 queries, grind 16, 27 hasher rounds) and
+aggregate them into one ZKLRC1 artifact with `agg.prove_chain`, verify
+every StepProof with `verify_step` and the artifact with `verify_agg` —
+then the command line:
 
   default  the wave prover (parallel/mesh_prover.py: every stage once
            over a wave of segments; 16 rollup-bench segments are one wave
-           on an 80 GB card), four-step matrix NTT, matrix DEEP, leveled
-           constraint executor, fused FRI chain (what `prove_program` does
+           on an 80 GB card), four-step matrix NTT, matrix DEEP, the
+           composition kernel, fused FRI chain (what `prove_program` does
            with no switch set); all 16 segments through `agg.prove_chain`
   serial   ZKL_WAVE=0: the serial segment loop with the default switches;
            the first 2 segments through `prove_program`, whose StepProof
            bytes must equal the wave's
   earlier  ZKL_WAVE=0 and ZKL_NO_MXU_NTT, ZKL_NO_MXU_DEEP, ZKL_CVM_LEVEL=0,
-           ZKL_NO_FUSED_FRI set: radix-2 NTT, limb-dot DEEP, stack
-           executor, per-layer FRI loop; the first 2 segments through
-           `prove_program`, whose StepProof bytes must equal the default
-           configuration's
+           ZKL_NO_FUSED_FRI set: radix-2 NTT, limb-dot DEEP, per-layer
+           FRI loop (ZKL_CVM_LEVEL moves only a CPU tensor's executor:
+           the card composes through the kernel); the first 2 segments
+           through `prove_program`, whose StepProof bytes must equal the
+           default configuration's
 
 Each phase prints one JSON object on a line of its own:
   device   card name and power limit (nvidia-smi), torch and CUDA versions
-  build    seconds to build the two kernels (in parallel) and the host
-           native library, what ptxas reports for each kernel, and for
+  build    seconds to build the three kernel libraries (in parallel) and
+           the host native library, what ptxas reports for each kernel,
+           and for
            the poseidon12 kernels their dynamic shared memory and SASS
            opcode counts (cuobjdump)
   kernels  poseidon12 == permute12_plain (fixed batches, edge states)
@@ -42,11 +45,20 @@ Each phase prints one JSON object on a line of its own:
            source as a yardstick
   commit   Merkle commit of a (219, 8192, 8) array on the card: through
            the kernel vs through the plain permutation
+  composition  the composition kernel (csrc/composition.cu: the generic
+           program and the round blocks, two launches) at the wave's
+           shapes, 16 x 32,768 and 2 x 32,768 rows of random values on the
+           strided sub-domain view, with rollup-bench's and fib-2pow16's
+           recorded programs: equal to the plain executors (leveled +
+           round blocks), device ms beside its bound and the plain
+           version's ms
   prove    per configuration (one line each, headed by the card's name
            and power limit): the segments proved, per-phase seconds (the
            default one: the wave width, the number of waves and each
            wave's phases with the peak memory at each phase's end),
-           rows/s of the step proofs, peak memory, kernel launches; for
+           rows/s of the step proofs, peak memory, kernel launches (the
+           composition kernels must run on every composed row: each
+           composition phase's kernel_rows = its segments x 32,768); for
            the default one also steps_s and agg_s of `prove_chain` with
            the split of agg_s (child challenges, the child batch on the
            card with its leaf and Merkle re-hash through poseidon12,
@@ -116,8 +128,8 @@ non-zero exit code and no result line.  Without a CUDA card the script
 exits non-zero at once.
 
 Options (for development; the default run takes none):
-  --phases device,build,kernels,commit,prove,stream,cli,mesh,ntt_mesh,
-           multihost,shapes
+  --phases device,build,kernels,commit,composition,prove,stream,cli,mesh,
+           ntt_mesh,multihost,shapes
                     subset of phases (`stream` and `shapes` need `prove`;
                     `mesh` and `multihost` without `prove` run the default
                     configuration first, as their reference)
@@ -174,14 +186,15 @@ from zklisp_tpu_torch.crypto import poseidon as pos          # noqa: E402
 from zklisp_tpu_torch.crypto import poseidon_cuda            # noqa: E402
 from zklisp_tpu_torch.field import digit_dot as dd           # noqa: E402
 from zklisp_tpu_torch.field import f128, limb                # noqa: E402
+from zklisp_tpu_torch.prove import composition_cuda         # noqa: E402
 from zklisp_tpu_torch.prove import kernels                   # noqa: E402
 from zklisp_tpu_torch.prove import stark_device              # noqa: E402
 
 DEV = torch.device("cuda")
 P = f128.P
 ROUNDS = 27
-ALL_PHASES = ("device,build,kernels,commit,prove,stream,cli,mesh,ntt_mesh,"
-              "multihost,shapes")
+ALL_PHASES = ("device,build,kernels,commit,composition,prove,stream,cli,"
+              "mesh,ntt_mesh,multihost,shapes")
 SEGMENTS = 16          # of 4096 rows: the 2^16-row trace
 PLAIN_SLICE = 16384    # states per call of the plain version (its int64
                        # temporaries take ~75 KB per state)
@@ -369,10 +382,11 @@ def sass_counts(lib_path: str) -> dict:
 
 
 def phase_build():
-    """Both kernels are compiled at once (one nvcc each)."""
+    """The kernel libraries are compiled at once (one nvcc each)."""
     t0 = time.time()
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        for job in [pool.submit(poseidon_cuda.load), pool.submit(dd.load)]:
+    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+        for job in [pool.submit(poseidon_cuda.load), pool.submit(dd.load),
+                    pool.submit(composition_cuda.load)]:
             job.result()                       # a failed build raises here
     t_kernels = time.time() - t0
     t0 = time.time()
@@ -382,10 +396,14 @@ def phase_build():
     emit({"phase": "build", "kernels_s": round(t_kernels, 3),
           "poseidon12_s": round(poseidon_cuda.build_info["seconds"] or 0, 3),
           "digit_dot_s": round(dd.build_info["seconds"] or 0, 3),
+          "composition_s": round(
+              composition_cuda.build_info["seconds"] or 0, 3),
           "native_s": round(t_native, 3),
           "ptxas": {"poseidon12":
                     ptxas_lines(poseidon_cuda.build_info["log"]),
-                    "digit_dot": ptxas_lines(dd.build_info["log"])},
+                    "digit_dot": ptxas_lines(dd.build_info["log"]),
+                    "composition":
+                    ptxas_lines(composition_cuda.build_info["log"])},
           "poseidon12_dynamic_smem_bytes": {
               k: f(ROUNDS) for k, f in P12_DYNAMIC_SMEM.items()},
           "poseidon12_sass": sass_counts(poseidon_cuda.LIB_PATH)})
@@ -828,6 +846,132 @@ def phase_commit():
         fail("kernel and plain commitments differ")
 
 
+def record_composition(name: str):
+    """(AIR, recorded program, scan specs) of segment 0 of
+    examples/<name>.zlisp at the benchmark's options, as the wave records
+    them."""
+    from zklisp_tpu_torch.compiler import compile_entry
+    from zklisp_tpu_torch.core.pi import PublicInputsBuilder
+    from zklisp_tpu_torch.parallel.mesh_prover import _SegPrep
+    from zklisp_tpu_torch.prove import planner
+    from zklisp_tpu_torch.prove.params import ProverOptions
+    from zklisp_tpu_torch.trace import build as tb
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(here, "examples", name + ".zlisp")) as f:
+        program = compile_entry(f.read(), [])
+    pi = PublicInputsBuilder(program).build()
+    opts = ProverOptions(min_security_bits=0, blowup=16, grind=16,
+                         queries=64, max_segment_rows=4096)
+    segs = planner.plan_segments(program, pi, opts)
+    full = tb.build_trace(program, pi)
+    rom_acc = (tb.rom_acc_from_program(program) if any(pi.program_id)
+               else (0, 0, 0))
+    prep = _SegPrep(0, len(segs), segs[0], full, program, pi,
+                    opts.to_proof_options(), 0, pi.program_id, rom_acc)
+    prog, specs = stark_device._record_cvm(
+        prep.air, len(prep.air.periodic_pattern()) + 1)
+    return prep.air, prog, specs
+
+
+def composition_work(air, prog, specs, S: int, n: int):
+    """(32-bit multiply-adds, bytes) the composition of S x n rows needs:
+    16 word products per 128-bit product and 7 per reduction (the two
+    folds by the 14-bit constant, as MAD32_PER_STATE_ROUND counts them);
+    each column the program or the blocks read, and the output, once."""
+    from zklisp_tpu_torch.prove import cvm
+    code = prog.regs.code
+    ops = code[:, 0]
+    mads = (int((ops == cvm.R_MUL).sum()) * (16 + 7)
+            + int((ops == cvm.R_EMIT).sum()) * 16 + 7)      # generic
+    enc = np.concatenate([code[:, 2], code[ops != cvm.R_EMIT, 3]])
+    leaf = ((enc >> 24) == cvm.RK_CUR) | ((enc >> 24) == cvm.RK_NXT)
+    cols = set((enc[leaf] & 0xFFFFFF).tolist())
+    c = air.cols
+    blocks = {"poseidon": [c.lane_index(i) for i in range(12)],
+              "rom": [c.rom_s_index(i) for i in range(3)]}
+    for kind, _ in specs:
+        L = len(blocks[kind])
+        # cubes (a square: 10, a product: 16, two reductions), the MDS
+        # rows, the 27 alpha dots, the 27 gate products
+        mads += (L * (10 + 16 + 14) + L * (L * 16 + 7)
+                 + 27 * (L * 16 + 7) + 27 * 16)
+        cols |= set(blocks[kind])
+        if kind == "poseidon":
+            mads += 16 + 7                          # pose_active's product
+            cols.add(c.pose_active)
+    mads += 16 + 7                  # the scan's start and its last fold
+    nbytes = (len(cols) + 1) * S * n * 32           # columns + the output
+    return mads * S * n, nbytes
+
+
+def phase_composition(smi_line: str):
+    """The composition kernels (generic program + round blocks) against the
+    plain executors on the card at the wave's shapes, and the times: the
+    kernels' device ms (10 calls behind a spin kernel, in turns), the
+    bound, and the plain version's (one call after one warm-up)."""
+    from zklisp_tpu_torch.prove import composition_device as comp
+    from zklisp_tpu_torch.prove import cvm
+
+    lines = []
+    for name in ("rollup-bench", "fib-2pow16"):
+        air, prog, specs = record_composition(name)
+        for S in (16, 2):
+            n = 4096 * COMPOSITION_BLOWUP
+            g = torch.Generator(device=DEV)
+            g.manual_seed(S * 1000 + len(name))
+
+            def rand(shape):
+                t = torch.randint(0, 1 << 16, tuple(shape) + (8,),
+                                  generator=g, dtype=torch.int32,
+                                  device=DEV)
+                t[..., 7].clamp_(max=0xFFFE)
+                return t
+
+            lde = rand((S, air.trace_width, 2 * n))[:, :, ::2]
+            per_p = rand((len(air.periodic_pattern()),
+                          32 * COMPOSITION_BLOWUP))
+            p_last, alphas = rand((n,)), rand(
+                (S, air.num_transition_constraints()))
+            gates = per_p[1:28]
+
+            def kernel():
+                return comp.compose(air, prog, specs, lde,
+                                    COMPOSITION_BLOWUP, per_p, p_last,
+                                    alphas)
+
+            def plain():
+                gen = cvm.execute_leveled(prog.levels, lde, per_p, p_last,
+                                          alphas, COMPOSITION_BLOWUP)
+                return limb.add(gen, comp.eval_scan_blocks_plain(
+                    air, lde, COMPOSITION_BLOWUP, gates, alphas, specs))
+
+            err = max_abs_diff(kernel(), plain())
+            torch.cuda.synchronize()
+            if err:
+                fail(f"composition kernel != plain ({name}, S={S})")
+            ms, host_us = turns_ms({"kernel": kernel})
+            plain_ms, _ = device_ms(plain, n=1)
+            mads, nbytes = composition_work(air, prog, specs, S, n)
+            t_ops = 2 * mads / INT32_MAD_PER_S * 1e3
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            lines.append({
+                "program": name, "S": S, "rows": n, "equal": True,
+                "generic_instructions": int(prog.regs.code.shape[0]),
+                "registers": prog.regs.n_regs, "scan_blocks":
+                [k for k, _ in specs], "ms": ms["kernel"],
+                "host_us_per_call": host_us["kernel"],
+                "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
+                "bound_by": "int_mad" if t_ops >= t_bytes else "hbm",
+                "mad32": mads, "bytes": nbytes,
+                "roofline_pct": 100 * max(t_ops, t_bytes) / ms["kernel"]})
+            del lde, per_p, p_last, alphas
+            torch.cuda.empty_cache()
+    print(smi_line, flush=True)
+    emit({"phase": "composition", "tolerance": 0, "launches_per_call": 2,
+          "shapes": lines})
+
+
 def prove_setup(n_segments: int, batch: int | None = None):
     """Compile the rollup-bench program scaled to `n_segments` segments
     of 4096 rows once for all runs: the largest BATCH that fits, or the
@@ -860,7 +1004,10 @@ def prove_setup(n_segments: int, batch: int | None = None):
 
 
 KERNEL_WRAPPERS = {"poseidon12": lambda: poseidon_cuda.permute12,
-                   "digit_dot": lambda: dd.digit_dot}
+                   "digit_dot": lambda: dd.digit_dot,
+                   "composition": lambda: composition_cuda.generic,
+                   "composition_scan": lambda: composition_cuda.scan}
+COMPOSITION_BLOWUP = 8   # rollup-bench's composition sub-domain (Q = 8)
 
 
 def counts_zero():
@@ -1081,6 +1228,16 @@ def phase_prove(setup, config: str, env: dict, smi_line: str,
             fail("the earlier configuration launched digit_dot")
     elif launches["digit_dot"] <= 0:
         fail(f"the {config} path launched the digit_dot kernel no time")
+    comp_events = [(nm, f) for nm, _, f in events
+                   if nm in ("composition", "wave_composition")]
+    if (not comp_events or launches["composition"] <= 0
+            or launches["composition_scan"] <= 0):
+        fail(f"the {config} path did not compose through the kernel")
+    for nm, f in comp_events:
+        rows = (f.get("S", 1) * setup["segment_rows"]
+                * COMPOSITION_BLOWUP)
+        if f.get("kernel_rows") != rows:
+            fail(f"{nm}: kernel_rows {f.get('kernel_rows')}, not {rows}")
     waves = wave_split(events)
     if config == "default" and (
             not waves or sum(w["S"] for w in waves) < len(steps)):
@@ -1117,7 +1274,9 @@ def phase_prove(setup, config: str, env: dict, smi_line: str,
             "peak_memory_bytes": peak, "launches": launches,
             "launches_per_segment": {
                 "poseidon12": len(batch_log) / n,
-                "digit_dot": steps_log_len[1] / n},
+                "digit_dot": steps_log_len[1] / n,
+                "composition": (launches["composition"]
+                                + launches["composition_scan"]) / n},
             "states_per_segment": sum(batch_log) / n}
     if pass1:
         line.update({
@@ -1825,6 +1984,9 @@ def run_phases(args, phases) -> None:
     if "commit" in phases:
         phase_commit()
         lap("commit")
+    if "composition" in phases:
+        phase_composition(smi_line)
+        lap("composition")
     if "prove" in phases:
         setup, run = phase_prove_all(args.segments, smi_line, args.profile)
         lap("prove")

@@ -58,11 +58,11 @@ from ..device import resolve
 from ..field import f128, limb, ntt
 from ..field import limb_host as _lh
 from ..field import ntt_host as _nh
-from ..prove import cvm, kernels, multiproof, planner
+from ..prove import kernels, multiproof, planner
 from ..prove import prover as pv
 from ..prove import stark_device as sd
 from ..prove.coin import RandomCoin
-from ..prove.composition_device import eval_scan_blocks
+from ..prove.composition_device import compose, composition_rows
 from ..prove.formats import StepMeta, StepProof, Zl1Proof
 from ..prove.params import (ProofOptions, ProverOptions,
                             select_partitions_for_trace)
@@ -292,16 +292,19 @@ def _prove_wave(preps: List[_SegPrep], mesh, wave_width: int, device,
     return _assemble()
 
 
+_SUMMED = ("S", "kernel_rows")   # phase fields that add up over shards
+
+
 def _lockstep(gens, devices) -> list:
     """Run the shards' stage generators (`_wave_stages`) side by side and
     return their results in shard order.  Each round advances every
     generator once, so a stage is queued on every shard before any shard
     reads what its stage queued.  A generator yields (name, on_device,
     fields) where a wave phase starts — the phase is timed once for the
-    whole wave, its "S" the sum over the shards, and at its end every
-    card of `devices` is synchronized — and None where it is about to
-    read the device inside a phase.  With one generator this is that
-    generator's stages in order, each in its phase."""
+    whole wave, its "S" and "kernel_rows" the sums over the shards, and at
+    its end every card of `devices` is synchronized — and None where it
+    is about to read the device inside a phase.  With one generator this
+    is that generator's stages in order, each in its phase."""
     ph = None
     try:
         msgs = [next(g) for g in gens]
@@ -312,7 +315,8 @@ def _lockstep(gens, devices) -> list:
                     ph = None
                 name, on_device, fields = msgs[0]
                 ph = phase(name, devices if on_device else None,
-                           **dict(fields, S=sum(m[2]["S"] for m in msgs)))
+                           **dict(fields, **{k: sum(m[2][k] for m in msgs)
+                                             for k in _SUMMED if k in fields}))
                 ph.__enter__()
             msgs, results = [], []
             for g in gens:
@@ -401,19 +405,14 @@ def _wave_stages(preps: List[_SegPrep], S_real: int, dev,
     # selectors, p_last, zerofier inverse) are the same across the wave
     # (exec_key guarantees it); the group-derived divisors are per
     # segment and enter the quotient stage as data.
-    yield ("wave_composition", True, {"S": S})
+    yield ("wave_composition", True,
+           {"S": S, "kernel_rows": composition_rows(trace_lde_c)})
     tabs = [sd._host_tables(p.air, p.groups, blowup_c, dev) for p in preps]
     per_p, p_last, zinv = tabs[0][:3]
     alphas_dev = limb.from_ints(alphas_l, dev)              # (S, nc, 8)
     prog_cvm, specs = sd._record_cvm(p0.air, per_p.shape[0] + 1)
-    comb = None
-    if specs:
-        comb = eval_scan_blocks(p0.air, trace_lde_c, blowup_c,
-                                per_p[1:1 + 27], alphas_dev, specs)
-    if prog_cvm.n_instr:
-        gen = cvm.execute(prog_cvm, trace_lde_c, per_p, p_last,
-                          alphas_dev, blowup_c)
-        comb = gen if comb is None else limb.add(comb, gen)
+    comb = compose(p0.air, prog_cvm, specs, trace_lde_c, blowup_c, per_p,
+                   p_last, alphas_dev)
 
     # boundary + quotient: every segment's own groups, padded to one
     # count (pad slots have beta = 0, so they add nothing)

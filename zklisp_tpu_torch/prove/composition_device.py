@@ -1,12 +1,17 @@
 """Constraint composition sum_i alpha_i * C_i over the evaluation domain,
 split into two parts:
 
-  * scan blocks — the Poseidon (27x12) and ROM (27x3) round constraints,
-    evaluated round by round on PyTorch tensors with the per-round
-    composition coefficients (`eval_scan_blocks`);
+  * scan blocks — the Poseidon (27x12) and ROM (27x3) round constraints
+    with the per-round composition coefficients (`eval_scan_blocks`);
   * generic constraints — everything else (ctrl/alu/ram/merkle, hold and
     binding rows), walked ONCE per configuration and recorded to cvm
     bytecode (see cvm.py).
+
+`compose` sums both; the wave and the serial prover call it.  On a CUDA
+tensor each part is one launch of csrc/composition.cu
+(prove/composition_cuda.py), the scan blocks adding into the generic
+sum; on a CPU tensor each part runs as plain PyTorch limb ops
+(`eval_scan_blocks_plain`, cvm's executors), which give the same limbs.
 
 `_walk` is the single traversal used by both; emission order (and hence
 the global alpha index of every constraint) exactly matches
@@ -23,6 +28,7 @@ from ..air.zk_air import ZkLispAir
 from ..field import f128
 from ..field import limb as tl
 from ..trace.layout import POSEIDON_ROUNDS, VM_USAGE_SPONGE
+from . import cvm
 
 P = f128.P
 
@@ -129,20 +135,67 @@ def collect_generic(air: ZkLispAir, cur, nxt, periodic):
 
 
 # ---------------------------------------------------------------------------
-# scan blocks (PyTorch)
+# the composition: generic constraints + scan blocks
+# ---------------------------------------------------------------------------
+
+def compose(air: ZkLispAir, prog, specs, lde, shift: int, per_p, p_last,
+            alphas_arr):
+    """sum_i alpha_i * C_i over the domain: (..., N, 8), or None when the
+    AIR has no transition constraint.  prog, specs: `_record_cvm`'s
+    recording; lde (..., w, N, 8) (a strided view is fine); shift: the
+    next row's offset (the domain's blowup); per_p (n_perp, period, 8)
+    one period of each short-periodic column, the 27 round gates at
+    1..27; p_last (N, 8); alphas_arr (..., n_constraints, 8)."""
+    comb = None
+    if prog.n_instr:
+        comb = cvm.execute(prog, lde, per_p, p_last, alphas_arr, shift)
+    if specs:
+        comb = eval_scan_blocks(air, lde, shift, per_p[1:1 + POSEIDON_ROUNDS],
+                                alphas_arr, specs, acc=comb)
+    return comb
+
+
+def composition_rows(lde) -> int:
+    """Rows the composition kernel evaluates for `lde` (..., w, N, 8): every
+    row of every segment on a CUDA tensor, none on a CPU tensor (the
+    phases' `kernel_rows`)."""
+    if lde.device.type != "cuda":
+        return 0
+    return (lde.shape[0] if lde.dim() == 4 else 1) * lde.shape[-2]
+
+
+# ---------------------------------------------------------------------------
+# scan blocks
 # ---------------------------------------------------------------------------
 
 def eval_scan_blocks(air: ZkLispAir, lde, shift: int, gates, alphas_arr,
-                     specs):
-    """Sum of the Poseidon/ROM round-constraint contributions, each
-    combined with its alpha slice; (..., N, 8) or None when `specs` is
-    empty.
+                     specs, acc=None):
+    """acc (or 0) + the Poseidon/ROM round-constraint contributions, each
+    combined with its alpha slice: (..., N, 8); None when `specs` is
+    empty and no acc is given.
 
     lde: (..., w, N, 8) column-major evaluations, a leading segment axis
     for a wave (a strided view is fine); the next-row view of a column
     is its roll by `shift` (the evaluation domain's blowup) within its
     segment.  gates: (27, period, 8), ONE period of each round-gate
-    column.  alphas_arr: (..., n_constraints, 8), each segment's own."""
+    column.  alphas_arr: (..., n_constraints, 8), each segment's own.
+
+    A CUDA tensor takes one launch of the scan kernel, which adds into
+    `acc` in place; a CPU tensor the plain version."""
+    if not specs:
+        return acc
+    if lde.device.type == "cuda":
+        from .composition_cuda import scan
+        return scan(air, specs, lde, shift, gates, alphas_arr, acc)
+    term = eval_scan_blocks_plain(air, lde, shift, gates, alphas_arr, specs)
+    return term if acc is None else tl.add(acc, term)
+
+
+def eval_scan_blocks_plain(air: ZkLispAir, lde, shift: int, gates,
+                           alphas_arr, specs):
+    """The scan blocks in plain PyTorch limb ops, on any device: the sum
+    of `eval_scan_blocks` without acc (None when `specs` is empty),
+    round by round (`_scan_rounds`)."""
     acc = None
     for kind, ix in specs:
         if kind == "poseidon":

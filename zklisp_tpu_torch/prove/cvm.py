@@ -6,11 +6,14 @@ Pipeline:
              (pure-Python tree nodes; milliseconds)
   compile  — post-order flatten each constraint tree to PUSH/ADD/SUB/
              MUL/EMIT instructions; shared subexpressions get slots
-  execute  — evaluates sum_i alpha_i * C_i over the domain (PyTorch,
-             eager) with one of two executors
+  execute  — evaluates sum_i alpha_i * C_i over the domain
   interpret — host reference over a single row of Python ints (tests)
 
-Two executors share the recorded program and give identical limbs:
+`execute` runs a CUDA tensor through the composition kernel
+(prove/composition_cuda.py, csrc/composition.cu), which reads the
+program's register form (`compile_registers`) as data, one thread per
+row.  A CPU tensor takes one of the two plain PyTorch executors, which
+share the recorded program and give the kernel's limbs:
 
   stack   — a Python loop over the instructions, each one batched limb
             op over all N rows (~4e3 small ops per segment).
@@ -20,14 +23,15 @@ Two executors share the recorded program and give identical limbs:
             unified operand table), so the program is ~tree-depth x 3
             large ops per row chunk.
 
-`execute` takes the leveled executor for a CUDA tensor and the stack
-executor for a CPU tensor; ZKL_CVM_LEVEL=1/0 (read at call time)
-overrides.
+ZKL_CVM_LEVEL=1/0 (read at call time) picks the leveled or the stack
+executor for a CPU tensor (default: stack).  Both can be called directly
+on any device (`execute_leveled`, `execute_stack`).
 """
 
 from __future__ import annotations
 
 import hashlib
+import heapq
 import os
 from collections import defaultdict
 from dataclasses import dataclass
@@ -133,6 +137,7 @@ class CvmProgram:
     n_instr: int           # before padding
     n_slots: int = 0       # CSE slots (bucketed)
     levels: "Optional[LevelProgram]" = None   # leveled-executor schedule
+    regs: "Optional[RegProgram]" = None       # the kernel's register form
 
 
 _LEAF_OP = {"cur": OP_PUSH_CUR, "nxt": OP_PUSH_NXT, "per": OP_PUSH_PER,
@@ -256,7 +261,128 @@ def compile_constraints(roots: List[Tuple[Sym, int]],
             n_slots *= 2
     prog = CvmProgram(ops, arg, imm, aidx, S, n_instr, n_slots)
     prog.levels = compile_levels(roots)
+    prog.regs = compile_registers(prog)
     return prog
+
+
+# ---------------------------------------------------------------------------
+# register form: the stack program as three-address code (the kernel's)
+# ---------------------------------------------------------------------------
+
+# operand kinds (operand = kind << 24 | index)
+RK_REG, RK_CUR, RK_NXT, RK_PER, RK_PLAST, RK_CONST = range(6)
+# instructions (op, dst, a, b)
+R_ADD, R_SUB, R_MUL, R_EMIT = range(4)
+_R_BIN = {OP_ADD: R_ADD, OP_SUB: R_SUB, OP_MUL: R_MUL}
+_R_LEAF = {OP_PUSH_CUR: RK_CUR, OP_PUSH_NXT: RK_NXT, OP_PUSH_PER: RK_PER,
+           OP_PUSH_PLAST: RK_PLAST}
+
+
+@dataclass
+class RegProgram:
+    """The stack program as three-address code over a per-row register
+    file, which csrc/composition.cu interprets as data.
+
+    code (I, 4) int32 rows (op, dst, a, b): R_ADD / R_SUB / R_MUL write
+    register `dst` from operands a and b (both read before dst is
+    written); R_EMIT adds alphas[dst] * a to the row's sum (b unused).
+    An operand is kind << 24 | index: a register, a cur or nxt column, a
+    short-periodic column, p_last (index 0) or an entry of `consts`, the
+    program's distinct constants as (K, 4) little-endian 32-bit words.
+    A register is free again once its value's last use has read it, so
+    n_regs is the most values live at once: the stack's depth plus the
+    live CSE slots, never the program's length."""
+    code: _np.ndarray       # (I, 4) int32
+    consts: _np.ndarray     # (K, 4) uint32 words
+    n_regs: int
+    sig: str                # content hash: cache key of the device copy
+
+
+def _operand(kind: int, index: int) -> int:
+    return (kind << 24) | index
+
+
+def compile_registers(prog: CvmProgram) -> RegProgram:
+    """Replay the stack program symbolically: a push leaves its leaf on
+    the stack as an operand (no instruction), a binop takes the lowest
+    free register, a CSE slot keeps its value's register until its last
+    PUSH_SLOT has been consumed.  The instructions and their order are
+    the stack program's, so every row computes the same field values."""
+    n = prog.n_instr
+    ops = [int(v) for v in prog.ops[:n]]
+    arg = [int(v) for v in prog.arg[:n]]
+    pushes: Dict[int, int] = defaultdict(int)
+    for op, a in zip(ops, arg):
+        if op == OP_PUSH_SLOT:
+            pushes[a] += 1
+    imm_words = _np.asarray(prog.imm[:n], _np.uint32)
+    imm_words = imm_words[:, 0::2] | (imm_words[:, 1::2] << 16)
+    const_ix: Dict[bytes, int] = {}
+    consts: List[_np.ndarray] = []
+    refs: Dict[int, int] = {}           # register -> live references
+    free: List[int] = []
+    slot_reg: Dict[int, int] = {}
+    stack: List[int] = []
+    code: List[Tuple[int, int, int, int]] = []
+    n_regs = 0
+
+    def release(opnd: int) -> None:
+        if opnd >> 24 == RK_REG:
+            r = opnd & 0xFFFFFF
+            refs[r] -= 1
+            if refs[r] == 0:
+                del refs[r]
+                heapq.heappush(free, r)
+
+    for i, (op, a) in enumerate(zip(ops, arg)):
+        if op == OP_NOP:
+            continue
+        if op in _R_LEAF:
+            stack.append(_operand(_R_LEAF[op], a))
+        elif op == OP_PUSH_CONST:
+            key = imm_words[i].tobytes()
+            if key not in const_ix:
+                const_ix[key] = len(consts)
+                consts.append(imm_words[i])
+            stack.append(_operand(RK_CONST, const_ix[key]))
+        elif op == OP_STORE_SLOT:
+            v = stack.pop()
+            assert v >> 24 == RK_REG, "cvm: a slot holds a binop's value"
+            r = v & 0xFFFFFF
+            slot_reg[a] = r
+            refs[r] += pushes[a] - 1     # the popped entry -> later pushes
+            if refs[r] == 0:
+                del refs[r]
+                heapq.heappush(free, r)
+        elif op == OP_PUSH_SLOT:
+            stack.append(_operand(RK_REG, slot_reg[a]))
+        elif op == OP_EMIT:
+            v = stack.pop()
+            code.append((R_EMIT, int(prog.aidx[i]), v, 0))
+            release(v)
+        elif op in _R_BIN:
+            b = stack.pop()
+            x = stack.pop()
+            release(x)
+            release(b)
+            if free:
+                d = heapq.heappop(free)
+            else:
+                d, n_regs = n_regs, n_regs + 1
+            refs[d] = 1
+            code.append((_R_BIN[op], d, x, b))
+            stack.append(_operand(RK_REG, d))
+        else:
+            raise ValueError(f"cvm: unknown opcode {op}")
+    assert not stack and not refs
+    code_a = _np.asarray(code, _np.int32).reshape(-1, 4)
+    consts_a = (_np.stack(consts) if consts
+                else _np.zeros((0, 4), _np.uint32)).astype(_np.uint32)
+    h = hashlib.sha256()
+    h.update(_np.int64(n_regs).tobytes())
+    h.update(code_a.tobytes())
+    h.update(consts_a.tobytes())
+    return RegProgram(code_a, consts_a, n_regs, h.hexdigest())
 
 
 # ---------------------------------------------------------------------------
@@ -583,21 +709,26 @@ def execute(prog: CvmProgram, lde, per_p, p_last, alphas, blowup: int):
     period of each short-periodic column; p_last (N, 8); alphas
     (..., n_constraints, 8), each segment's own.
 
-    A CUDA tensor takes the leveled executor, a CPU tensor the stack
-    machine (ZKL_CVM_LEVEL=1/0 overrides); both give identical limbs.
-    The stack machine is a Python loop over the recorded instructions,
-    each a batched limb op over all N rows (of every segment); `nxt`
-    columns are rolls of `lde` by `blowup` within each segment,
-    short-periodic columns are tiled from one period, constants stay
-    (1, 8) and broadcast."""
-    from ..field import limb as tl
-
-    choice = os.environ.get("ZKL_CVM_LEVEL", "")
-    if choice == "":
-        choice = "1" if lde.device.type == "cuda" else "0"
-    if prog.levels is not None and choice != "0":
+    A CUDA tensor goes to the composition kernel (one launch); a CPU
+    tensor to the stack executor, or to the leveled one with
+    ZKL_CVM_LEVEL=1.  All three give identical limbs."""
+    if lde.device.type == "cuda":
+        from .composition_cuda import generic
+        return generic(prog.regs, lde, per_p, p_last, alphas, blowup)
+    if prog.levels is not None and os.environ.get("ZKL_CVM_LEVEL") == "1":
         return execute_leveled(prog.levels, lde, per_p, p_last, alphas,
                                blowup)
+    return execute_stack(prog, lde, per_p, p_last, alphas, blowup)
+
+
+def execute_stack(prog: CvmProgram, lde, per_p, p_last, alphas,
+                  blowup: int):
+    """The stack executor: same contract as `execute`, on any device.  A
+    Python loop over the recorded instructions, each a batched limb op
+    over all N rows (of every segment); `nxt` columns are rolls of `lde`
+    by `blowup` within each segment, short-periodic columns are tiled
+    from one period, constants stay (1, 8) and broadcast."""
+    from ..field import limb as tl
 
     N = lde.shape[-2]
     reps = N // per_p.shape[1]

@@ -5,7 +5,8 @@ prove/stark_device.py; byte-identical proofs).
   lde                trace polys + LDE (batched iNTT + coset NTT, in
                      column chunks; four-step matrix NTT from 512 points)
   trace_commit       row-chunked Poseidon leaves + tree (CUDA kernel)
-  composition        Poseidon/ROM scan blocks + constraint bytecode VM,
+  composition        constraint bytecode VM + Poseidon/ROM scan blocks
+                     (two launches of csrc/composition.cu on the card),
                      on the stride-2 sub-domain when ce_blowup < blowup
   quotient           boundary groups + zerofier, interpolate, split into
                      Q columns, re-LDE
@@ -21,7 +22,8 @@ prove/stark_device.py; byte-identical proofs).
 This is the configuration the JAX package runs by default on a device.
 Its kill switches carry over under the same names, read at call time:
 ZKL_NO_MXU_NTT (radix-2 NTT, field/ntt.py), ZKL_NO_MXU_DEEP (row-chunked
-limb dot), ZKL_CVM_LEVEL=0 (stack executor, prove/cvm.py) and
+limb dot), ZKL_CVM_LEVEL=0/1 (the CPU's stack or leveled executor,
+prove/cvm.py; a CUDA tensor always takes the composition kernel) and
 ZKL_NO_FUSED_FRI (per-layer FRI loop with the host coin, one blocking
 root read-back per layer).  Every combination gives the same proof bytes.
 
@@ -66,7 +68,8 @@ from ..trace.layout import STEPS_PER_LEVEL_P2
 from ..utils.tracing import phase
 from . import cvm, kernels, multiproof
 from .coin import RandomCoin
-from .composition_device import collect_generic, eval_scan_blocks
+from .composition_device import (collect_generic, composition_rows,
+                                 compose)
 from .params import ProofOptions
 from .stark import (FriLayerOpenings, ProofContext, QueryOpenings,
                     StarkProof, group_assertions, lde_points_host,
@@ -706,18 +709,13 @@ def prove_trace(trace, air: ZkLispAir, air_pi, options: ProofOptions,
     per_p, p_last, zinv = tables[:3]
     alphas_dev = limb.from_ints(alphas, dev)
 
-    # stage 3: composition = scan blocks + bytecode VM
+    # stage 3: composition = bytecode VM + scan blocks
     with phase("record_cvm"):
         prog_cvm, specs = _record_cvm(air, per_p.shape[0] + 1)
-    with phase("composition", dev):
-        comb = None
-        if specs:
-            comb = eval_scan_blocks(air, trace_lde_c, blowup_c,
-                                    per_p[1:1 + 27], alphas_dev, specs)
-        if prog_cvm.n_instr:
-            acc_gen = cvm.execute(prog_cvm, trace_lde_c, per_p, p_last,
-                                  alphas_dev, blowup_c)
-            comb = acc_gen if comb is None else limb.add(comb, acc_gen)
+    with phase("composition", dev,
+               kernel_rows=composition_rows(trace_lde_c)):
+        comb = compose(air, prog_cvm, specs, trace_lde_c, blowup_c, per_p,
+                       p_last, alphas_dev)
 
     # boundary + quotient
     with phase("quotient", dev):
